@@ -1,0 +1,180 @@
+"""PWCFlow, the UFlow PWC network (port of ``arflow_tpu/models/uflow.py``).
+
+A 5-level feature pyramid; at each level from the coarsest to level 1 a
+feature warp, feature normalization, the cost volume, a dense-net flow
+decoder and a deconv for context; a dilated refinement stack at 1/4
+resolution; two bilinear 2x upsamples back to full resolution. Returns 6
+flows, finest first: [full, 1/2, 1/4 (refined), 1/8, 1/16, 1/32].
+
+Only the gates-off math is ported: none of the JAX package's TPU relayouts
+(W-fold pyramid, H-fold decoder, pyramid batching, subpixel deconv, split
+decoder, int8). Module and ``state_dict`` keys are the reference's, so a
+checkpoint written by ``arflow-to-torch`` loads with ``strict=True``.
+
+Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from arflow_tpu_torch.models.layers import (
+    LEAKY_ALPHA,
+    conv2d,
+    conv_transpose2d,
+    leaky_relu,
+)
+from arflow_tpu_torch.ops import (
+    compute_cost_volume,
+    flow_to_warp,
+    normalize_features,
+    resample,
+    upsample,
+)
+
+# The published UFlow widths (models/uflow.py of the JAX package).
+NUM_LEVELS = 5
+PYRAMID_FILTERS = ((3, 32),) * NUM_LEVELS  # per level (num_convs, channels)
+FLOW_DECODER_FILTERS = (128, 128, 96, 64, 32)
+REFINEMENT_FILTERS = ((128, 1), (128, 2), (128, 4), (96, 8), (64, 16), (32, 1))
+CONTEXT_CHANNELS = 32
+MAX_DISPLACEMENT = 4
+
+TRAINING_NOT_PORTED = (
+    "training (UFlowLoss, optimizer and trainer, level dropout, the cost "
+    "volume's backward kernel) is not ported yet: ROADMAP.md queue 1, "
+    "'the training slice'"
+)
+
+
+class PWCFeaturePyramid(nn.Module):
+    """``PYRAMID_FILTERS`` convs per level; each level's first conv has
+    stride 2. Input in [0, 1] is rescaled to [-1, 1]."""
+
+    def __init__(self):
+        super().__init__()
+        self._convs = nn.ModuleList()
+        c = 3
+        for num_layers, num_filters in PYRAMID_FILTERS:
+            level = nn.ModuleList()
+            for i in range(num_layers):
+                level.append(conv2d(c, num_filters, 3, stride=2 if i == 0 else 1))
+                c = num_filters
+            self._convs.append(level)
+
+    def forward(self, x: torch.Tensor) -> list:
+        x = x * 2.0 - 1.0
+        features = []
+        for level in self._convs:
+            for conv in level:
+                x = leaky_relu(conv(x))
+            features.append(x)
+        return features
+
+
+class PWCFlow(nn.Module):
+    """UFlow PWC optical-flow network, inference."""
+
+    def __init__(self, feature_norm: bool = True):
+        super().__init__()
+        self.feature_norm = feature_norm
+        self._feature_pyramid_extractor = PWCFeaturePyramid()
+
+        feat = PYRAMID_FILTERS[-1][1]
+        cv = (2 * MAX_DISPLACEMENT + 1) ** 2
+        ctx = FLOW_DECODER_FILTERS[-1]
+        # Level 0 never estimates flow: an empty entry keeps the reference's
+        # _flow_layers.{level} indices.
+        self._flow_layers = nn.ModuleList([nn.ModuleList()])
+        for level in range(1, NUM_LEVELS):
+            cin = cv + feat
+            if level < NUM_LEVELS - 1:
+                cin += CONTEXT_CHANNELS + 2  # context_up, flow_up
+            layers = nn.ModuleList()
+            for c in FLOW_DECODER_FILTERS:
+                layers.append(nn.Sequential(conv2d(cin, c),
+                                            nn.LeakyReLU(LEAKY_ALPHA)))
+                cin += c
+            layers.append(conv2d(ctx, 2))
+            self._flow_layers.append(layers)
+
+        # The reference builds a context deconv for every level, 0 included,
+        # and never applies level 0's.
+        self._context_up_layers = nn.ModuleList(
+            conv_transpose2d(ctx, CONTEXT_CHANNELS) for _ in range(NUM_LEVELS))
+
+        refine = []
+        cin = ctx + 2
+        for c, d in REFINEMENT_FILTERS:
+            refine += [conv2d(cin, c, 3, dilation=d), nn.LeakyReLU(LEAKY_ALPHA)]
+            cin = c
+        refine.append(conv2d(cin, 2))
+        self._refine_model = nn.Sequential(*refine)
+
+    def feature_pyramid(self, img: torch.Tensor) -> list:
+        """NCHW image in [0, 1] -> per-level NCHW features, finest first."""
+        return self._feature_pyramid_extractor(img)
+
+    def forward_2_frames(self, fp1: list, fp2: list) -> list:
+        """Coarse-to-fine flow between two feature pyramids; NCHW flows."""
+        flow = flow_up = context = context_up = None
+        flows = []
+        for level in range(NUM_LEVELS - 1, 0, -1):
+            features1, features2 = fp1[level], fp2[level]
+            if flow_up is None:
+                warped2 = features2
+            else:
+                warped2 = resample(features2, flow_to_warp(flow_up))
+
+            f1n, w2n = features1, warped2
+            if self.feature_norm:
+                f1n, w2n = normalize_features(features1, warped2)
+            cost_volume = leaky_relu(
+                compute_cost_volume(f1n, w2n, MAX_DISPLACEMENT))
+
+            if flow_up is None:
+                x = torch.cat([cost_volume, features1], dim=1)
+            else:
+                x = torch.cat([context_up, flow_up, cost_volume, features1],
+                              dim=1)
+            # Dense-net connections: each hidden conv sees all before it.
+            hidden = self._flow_layers[level][:-1]
+            for i, layer in enumerate(hidden):
+                context = layer(x)
+                if i + 1 < len(hidden):
+                    x = torch.cat([x, context], dim=1)
+            flow = self._flow_layers[level][-1](context)
+
+            if flow_up is not None:
+                flow = flow + flow_up
+            flow_up = upsample(flow, is_flow=True)
+            context_up = self._context_up_layers[level](context)
+            flows.insert(0, flow)
+
+        refinement = self._refine_model(torch.cat([context, flow], dim=1))
+        flows[0] = flow + refinement
+        flows.insert(0, upsample(flows[0], is_flow=True))
+        flows.insert(0, upsample(flows[0], is_flow=True))
+        return flows
+
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor,
+                with_bk: bool = True, train: bool = False) -> dict:
+        """Images NHWC (B,H,W,3) in [0, 1] -> {'flows_fw'[, 'flows_bw']},
+        each 6 NHWC flows (B,h,w,2), finest first."""
+        if train:
+            raise NotImplementedError(TRAINING_NOT_PORTED)
+        fp1 = self.feature_pyramid(to_nchw(img1))
+        fp2 = self.feature_pyramid(to_nchw(img2))
+        res = {"flows_fw": [to_nhwc(f) for f in self.forward_2_frames(fp1, fp2)]}
+        if with_bk:
+            res["flows_bw"] = [to_nhwc(f) for f in self.forward_2_frames(fp2, fp1)]
+        return res
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()

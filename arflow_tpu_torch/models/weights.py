@@ -1,0 +1,114 @@
+"""Weights into the port: JAX parameter trees and reference checkpoints.
+
+``uflow_state_dict_from_jax`` is the port's own copy of
+``arflow_tpu/models/torch_export.py:export_uflow``: it turns the JAX
+``PWCFlow`` parameter tree (a nested dict of arrays, handed over as numpy)
+into this package's ``state_dict``:
+
+- conv kernels HWIO -> OIHW;
+- deconv kernels, stored pre-flipped in the JAX package: un-flip, then
+  (kh, kw, I, O) -> (I, O, kh, kw);
+- a zero ``_context_up_layers.0``, the deconv that the reference builds and
+  never applies.
+
+``load_pretrained`` reads a reference-format ``.pth(.tar)``, the format that
+``arflow-to-torch`` writes from a JAX checkpoint, with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from arflow_tpu_torch.device import resolve_device
+
+
+def _np(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.float32)
+
+
+def conv_kernel_from_jax(k) -> np.ndarray:
+    """HWIO -> OIHW."""
+    return np.ascontiguousarray(np.transpose(_np(k), (3, 2, 0, 1)))
+
+
+def deconv_kernel_from_jax(k) -> np.ndarray:
+    """Pre-flipped (kh, kw, I, O) -> torch ConvTranspose2d (I, O, kh, kw)."""
+    return np.ascontiguousarray(np.transpose(_np(k)[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def _put(sd, name, entry, kernel_fn):
+    sd[f"{name}.weight"] = kernel_fn(entry["kernel"])
+    if "bias" in entry:
+        sd[f"{name}.bias"] = _np(entry["bias"])
+
+
+def _indices(params, prefix, suffix=""):
+    """Sorted integers n of the keys ``{prefix}{n}{suffix}``."""
+    out = []
+    for key in params:
+        if key.startswith(prefix) and key.endswith(suffix):
+            mid = key[len(prefix):len(key) - len(suffix)]
+            if mid.isdigit():
+                out.append(int(mid))
+    return sorted(out)
+
+
+def uflow_state_dict_from_jax(params) -> dict:
+    """JAX ``PWCFlow`` params -> this package's ``PWCFlow`` state_dict
+    (float32 CPU tensors). Accepts the bare params or ``{'params': ...}``."""
+    if "params" in params and "feature_pyramid" not in params:
+        params = params["params"]
+    sd = {}
+    pyr = params["feature_pyramid"]
+    pairs = sorted(tuple(int(v) for v in k[len("conv_l"):].split("_"))
+                   for k in pyr if k.startswith("conv_l"))
+    for lvl, i in pairs:
+        _put(sd, f"_feature_pyramid_extractor._convs.{lvl}.{i}",
+             pyr[f"conv_l{lvl}_{i}"], conv_kernel_from_jax)
+    levels = _indices(params, "flow_l", "_out")
+    for level in levels:
+        convs = _indices(params, f"flow_l{level}_c")
+        for j in convs:
+            _put(sd, f"_flow_layers.{level}.{j}.0", params[f"flow_l{level}_c{j}"],
+                 conv_kernel_from_jax)
+        _put(sd, f"_flow_layers.{level}.{len(convs)}",
+             params[f"flow_l{level}_out"], conv_kernel_from_jax)
+        _put(sd, f"_context_up_layers.{level}", params[f"context_up_l{level}"],
+             deconv_kernel_from_jax)
+    if levels and 0 not in levels:
+        sd["_context_up_layers.0.weight"] = np.zeros_like(
+            sd[f"_context_up_layers.{levels[0]}.weight"])
+        if f"_context_up_layers.{levels[0]}.bias" in sd:
+            sd["_context_up_layers.0.bias"] = np.zeros_like(
+                sd[f"_context_up_layers.{levels[0]}.bias"])
+    refine = _indices(params, "refine_")
+    for j in refine:
+        _put(sd, f"_refine_model.{2 * j}", params[f"refine_{j}"],
+             conv_kernel_from_jax)
+    _put(sd, f"_refine_model.{2 * len(refine)}", params["refine_out"],
+         conv_kernel_from_jax)
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def load_pretrained(path: str, model_cfg, device="cuda"):
+    """Build the model of ``model_cfg`` on ``device`` and load the
+    reference-format checkpoint at ``path`` into it with ``strict=True``.
+
+    Native msgpack checkpoints need flax and stay with the JAX package;
+    ``arflow-to-torch`` converts them to this format.
+    """
+    from arflow_tpu_torch.models import get_model
+
+    dev = resolve_device(device)
+    if not path.endswith((".pth", ".pth.tar", ".tar", ".pt")):
+        raise ValueError(
+            f"{path}: not a .pth(.tar) checkpoint; convert a JAX checkpoint "
+            "with arflow-to-torch first")
+    # {'epoch', 'state_dict'} as the reference saves it, or a bare state_dict
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    sd = {k: v for k, v in sd.items() if k != "epoch"}
+    model = get_model(model_cfg, device="cpu")
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev)

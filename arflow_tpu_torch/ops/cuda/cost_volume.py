@@ -1,0 +1,137 @@
+"""Local-correlation cost volume: the CUDA kernel, its plain version and
+the autograd Function that dispatches between them.
+
+The kernel (``arflow_tpu_torch/csrc/cost_volume.cu``) replaces the TPU
+kernels ``arflow_tpu/ops/pallas/cost_volume_pallas.py:_fwd_kernel_v2`` and
+``_fwd_kernel``; its source says what bounds it and how its design meets
+that. Layout is NCHW: f1, f2 ``(B,C,H,W)`` give ``(B,(2md+1)**2,H,W)`` with
+dy-major displacement channels.
+
+``CostVolume`` runs the kernel on a CUDA tensor and the plain version on a
+CPU tensor; there is no fallback between them. Its backward is the plain
+shifted-product adjoint on either device, as in the JAX package, whose
+backward (``_grad_shifted``) is XLA and not Pallas.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from arflow_tpu_torch.ops.cuda.build import Kernel, load
+
+COST_VOLUME = Kernel(
+    name="cost_volume",
+    source="arflow_tpu_torch/csrc/cost_volume.cu",
+    replaces="arflow_tpu/ops/pallas/cost_volume_pallas.py:201 _fwd_kernel_v2 "
+             "(pallas_call :267); :67 _fwd_kernel (pallas_call :96)",
+)
+
+_MAX_DISPLACEMENT = 4  # the kernel's template instances: md in 1..4
+
+
+def compute_cost_volume_reference(f1: torch.Tensor, f2: torch.Tensor,
+                                  max_displacement: int = 4) -> torch.Tensor:
+    """Plain version: (2md+1)**2 shifted products, each averaged over C."""
+    md = max_displacement
+    if md <= 0:
+        raise ValueError(f"Max displacement of {md} is too small.")
+    h, w = f1.shape[-2], f1.shape[-1]
+    f2p = F.pad(f2, (md, md, md, md))
+    n = 2 * md + 1
+    return torch.stack(
+        [(f1 * f2p[:, :, i:i + h, j:j + w]).mean(dim=1)
+         for i in range(n) for j in range(n)],
+        dim=1,
+    )
+
+
+def cost_volume_grad_reference(g: torch.Tensor, f1: torch.Tensor,
+                               f2: torch.Tensor, max_displacement: int):
+    """Adjoint of the cost volume by shifted products (``_grad_shifted``):
+
+    grad_f1[c, y, x] = sum_k g[k, y, x] * f2[c, y+dy_k, x+dx_k] / C
+    grad_f2[c, y, x] = sum_k g[k, y-dy_k, x-dx_k] * f1[c, y-dy_k, x-dx_k] / C
+    """
+    md = max_displacement
+    c, h, w = f1.shape[-3], f1.shape[-2], f1.shape[-1]
+    n = 2 * md + 1
+    f2p = F.pad(f2, (md, md, md, md))
+    grad_f1 = torch.zeros_like(f1)
+    grad_f2p = torch.zeros_like(f2p)
+    for i in range(n):
+        for j in range(n):
+            gk = g[:, i * n + j:i * n + j + 1]
+            grad_f1 = grad_f1 + gk * f2p[:, :, i:i + h, j:j + w] / c
+            grad_f2p[:, :, i:i + h, j:j + w] += gk * f1 / c
+    return grad_f1, grad_f2p[:, :, md:md + h, md:md + w]
+
+
+def _lib():
+    lib = load("cost_volume")
+    fn = lib.arflow_cost_volume_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def cost_volume_kernel(f1: torch.Tensor, f2: torch.Tensor,
+                       max_displacement: int = 4) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (no synchronization)."""
+    md = max_displacement
+    if f1.device.type != "cuda" or f2.device != f1.device:
+        raise ValueError(
+            f"cost_volume kernel needs f1, f2 on one CUDA device, got "
+            f"{f1.device} and {f2.device}")
+    if f1.dtype != torch.float32 or f2.dtype != torch.float32:
+        raise TypeError(
+            f"cost_volume kernel takes float32, got {f1.dtype}/{f2.dtype} "
+            "(bf16 comes with the model.dtype roadmap item)")
+    if f1.dim() != 4 or f1.shape != f2.shape:
+        raise ValueError(
+            f"cost_volume kernel needs equal (B,C,H,W) shapes, got "
+            f"{tuple(f1.shape)} and {tuple(f2.shape)}")
+    if not (f1.is_contiguous() and f2.is_contiguous()):
+        raise ValueError("cost_volume kernel needs contiguous NCHW inputs")
+    if not 1 <= md <= _MAX_DISPLACEMENT:
+        raise ValueError(f"cost_volume kernel takes 1 <= md <= 4, got {md}")
+    b, c, h, w = f1.shape
+    if max(b, c, h * w) >= 2**31 or b >= 65536:
+        raise ValueError(f"cost_volume kernel: shape {tuple(f1.shape)} too large")
+    out = torch.empty((b, (2 * md + 1) ** 2, h, w), device=f1.device,
+                      dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    fn = _lib().arflow_cost_volume_fwd
+    stream = torch.cuda.current_stream(f1.device).cuda_stream
+    with torch.cuda.device(f1.device):
+        rc = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w, md,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"cost_volume kernel launch failed: CUDA error {rc}")
+    COST_VOLUME.launches += 1
+    return out
+
+
+class CostVolume(torch.autograd.Function):
+    """Kernel forward on CUDA tensors, plain forward on CPU tensors; the
+    shifted-product backward on both."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement):
+        ctx.save_for_backward(f1, f2)
+        ctx.max_displacement = max_displacement
+        if f1.device.type == "cuda":
+            return cost_volume_kernel(f1, f2, max_displacement)
+        if f1.device.type == "cpu":
+            return compute_cost_volume_reference(f1, f2, max_displacement)
+        raise ValueError(f"cost_volume: unsupported device {f1.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        gf1, gf2 = cost_volume_grad_reference(g, f1, f2, ctx.max_displacement)
+        return gf1, gf2, None
