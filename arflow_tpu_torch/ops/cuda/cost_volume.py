@@ -75,7 +75,21 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        blocks = lib.arflow_cost_volume_blocks
+        blocks.argtypes = [ctypes.c_int] * 4
+        blocks.restype = ctypes.c_longlong
     return lib
+
+
+def cost_volume_blocks(shape, max_displacement: int = 4) -> int:
+    """Grid size (blocks) of the kernel's launch for f1 of ``shape``
+    (B,C,H,W) on the current CUDA device."""
+    b, _, h, w = shape
+    n = _lib().arflow_cost_volume_blocks(b, h, w, max_displacement)
+    if n < 0:
+        raise ValueError(f"cost_volume kernel refuses shape {tuple(shape)}, "
+                         f"md={max_displacement}")
+    return n
 
 
 def cost_volume_kernel(f1: torch.Tensor, f2: torch.Tensor,

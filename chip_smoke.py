@@ -37,6 +37,7 @@ from arflow_tpu_torch.ops.cuda.build import build, build_log
 from arflow_tpu_torch.ops.cuda.cost_volume import (
     COST_VOLUME,
     compute_cost_volume_reference,
+    cost_volume_blocks,
     cost_volume_kernel,
 )
 from arflow_tpu_torch.serving import StreamingFlowEngine
@@ -85,6 +86,33 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Mean device milliseconds per call of ``fn``: CUDA events around
+    replays of a CUDA graph that holds ``launches`` calls, so the host's
+    time per call (Python, ctypes) is not in it, as it is in ``cuda_ms``
+    when the host is slower than the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
 
 
 def profile_window(fn, n: int, untraced_ms: float) -> dict:
@@ -166,50 +194,96 @@ def phase_device():
     return line
 
 
+def demangle(name: str) -> str:
+    """``kernel<4, true>`` for an Itanium-mangled template kernel whose
+    template arguments are ints and bools; other names as they are."""
+    head, sep, tail = name.partition("IL")
+    args = re.findall(r"L([ib])(\d+)E", sep + tail)
+    for m in re.finditer(r"\d+", head):
+        for j in range(m.start(), m.end()):
+            if int(head[j:m.end()]) == len(head) - m.end() and args:
+                return head[m.end():] + "<" + ", ".join(
+                    v if t == "i" else ("true" if v == "1" else "false")
+                    for t, v in args) + ">"
+    return name
+
+
+def ptxas_entries(log: str) -> list:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: its name, registers,
+    spills and the 'Used' line."""
+    entries = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        used = re.search(r"Used (\d+) registers.*", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        entries.append({"entry": demangle(chunk.split("'", 1)[0]),
+                        "registers": int(used.group(1)) if used else None,
+                        "spill_stores": int(spill.group(1)) if spill else None,
+                        "spill_loads": int(spill.group(2)) if spill else None,
+                        "used": used.group(0) if used else None})
+    return entries
+
+
 def phase_build():
     t0 = time.time()
     libs = {k.name: build(k.name) for k in KERNELS}
-    regs = {}
-    for k in KERNELS:
-        regs[k.name] = re.findall(r"Used \d+ registers.*", build_log(k.name))
     emit({"phase": "build", "seconds": time.time() - t0,
           "libraries": {n: os.path.relpath(p, REPO) for n, p in libs.items()},
-          "ptxas": regs})
+          "ptxas": {k.name: ptxas_entries(build_log(k.name)) for k in KERNELS}})
+
+
+def level_shapes(b):
+    """The cost volume's (B, C, H, W) at UFlow levels 1-4 of an HxW input."""
+    return [(b, 32, H // 2 ** (lv + 1), W // 2 ** (lv + 1)) for lv in (1, 2, 3, 4)]
 
 
 def phase_kernels(dev, smi):
     """Each kernel against its plain version, then timed, at the shapes the
-    main path gives it (the four UFlow levels at 384x640 b8)."""
+    main path gives it: the four UFlow levels at 384x640, batch 8 (2-frame
+    inference) and batch 1 (one streamed flow)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    levels = [(B, 32, H // 2 ** (lv + 1), W // 2 ** (lv + 1)) for lv in (1, 2, 3, 4)]
-    checks = levels + [(3, 20, 13, 37), (1, 32, 2, 3)]
+    levels = {B: level_shapes(B), 1: level_shapes(1)}
+    # Ragged shapes: C not a multiple of the channel chunk, W not a multiple
+    # of 4, maps smaller than md, md 1-3, and (last) a pointer that is not
+    # 16-byte aligned, which takes the 4-byte copies at W=20.
+    checks = ([(shape, MD, 0) for b in (B, 1) for shape in levels[b]]
+              + [((3, 20, 13, 37), MD, 0), ((1, 32, 2, 3), MD, 0),
+                 ((2, 32, 1, 1), MD, 0), ((2, 3, 6, 6), 1, 0),
+                 ((2, 5, 9, 16), 2, 0), ((1, 7, 11, 3), 3, 0),
+                 ((1, 32, 12, 20), MD, 1)])
     max_err = 0.0
-    for shape in checks:
-        f1 = torch.randn(shape, generator=gen, device=dev)
-        f2 = torch.randn(shape, generator=gen, device=dev)
-        out = cost_volume_kernel(f1, f2, MD)
+    for shape, md, offset in checks:
+        n = torch.Size(shape).numel()
+        f1 = torch.randn(n + offset, generator=gen, device=dev)[offset:].view(shape)
+        f2 = torch.randn(n + offset, generator=gen, device=dev)[offset:].view(shape)
+        out = cost_volume_kernel(f1, f2, md)
         torch.cuda.synchronize()
-        err = max_abs(out, compute_cost_volume_reference(f1, f2, MD))
+        err = max_abs(out, compute_cost_volume_reference(f1, f2, md))
         emit({"phase": "kernel_check", "kernel": "cost_volume", "shape": shape,
-              "md": MD, "max_abs_err": err, "atol": KERNEL_ATOL})
+              "md": md, "aligned16": f1.data_ptr() % 16 == 0,
+              "blocks": cost_volume_blocks(shape, md),
+              "max_abs_err": err, "atol": KERNEL_ATOL})
         if not err <= KERNEL_ATOL:
-            raise AssertionError(f"cost_volume {shape}: err {err} > {KERNEL_ATOL}")
+            raise AssertionError(f"cost_volume {shape} md={md}: err {err} > {KERNEL_ATOL}")
         max_err = max(max_err, err)
 
-    per_level = []
-    for level, shape in zip((1, 2, 3, 4), levels):
-        f1 = torch.randn(shape, generator=gen, device=dev)
-        f2 = torch.randn(shape, generator=gen, device=dev)
-        ms = cuda_ms(lambda: cost_volume_kernel(f1, f2, MD), iters=200)
-        plain_ms = cuda_ms(lambda: compute_cost_volume_reference(f1, f2, MD),
-                           iters=10)
-        bound_ms, bound_by, nbytes = cost_volume_bound_ms(*shape)
-        row = {"level": level, "shape": shape, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               "share_of_bound": bound_ms / ms, "library_ms": None}
-        per_level.append(row)
-        emit({"phase": "kernel_time", "kernel": "cost_volume", **row,
-              "card": smi})
+    per_level = {B: [], 1: []}
+    for b, shapes in levels.items():
+        for level, shape in zip((1, 2, 3, 4), shapes):
+            f1 = torch.randn(shape, generator=gen, device=dev)
+            f2 = torch.randn(shape, generator=gen, device=dev)
+            ms = graph_ms(lambda: cost_volume_kernel(f1, f2, MD))
+            eager_ms = cuda_ms(lambda: cost_volume_kernel(f1, f2, MD), iters=200)
+            plain_ms = cuda_ms(lambda: compute_cost_volume_reference(f1, f2, MD),
+                               iters=10)
+            bound_ms, bound_by, nbytes = cost_volume_bound_ms(*shape)
+            row = {"level": level, "batch": b, "shape": shape,
+                   "blocks": cost_volume_blocks(shape, MD), "ms": ms,
+                   "eager_ms": eager_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                   "share_of_bound": bound_ms / ms, "library_ms": None}
+            per_level[b].append(row)
+            emit({"phase": "kernel_time", "kernel": "cost_volume", **row,
+                  "card": smi})
     return max_err, per_level
 
 
@@ -359,12 +433,15 @@ def main() -> int:
         "replaces": COST_VOLUME.replaces,
         "launches": launches["cost_volume"],
         "max_abs_err": max_err,
-        # One 2-frame forward's worth: the four level shapes summed.
-        "ms": sum(r["ms"] for r in per_level),
-        "plain_ms": sum(r["plain_ms"] for r in per_level),
-        "bound_ms": sum(r["bound_ms"] for r in per_level),
-        "bound_by": "+".join(sorted({r["bound_by"] for r in per_level})),
+        # One 2-frame forward's worth at b8: the four level shapes summed.
+        "ms": sum(r["ms"] for r in per_level[B]),
+        "plain_ms": sum(r["plain_ms"] for r in per_level[B]),
+        "bound_ms": sum(r["bound_ms"] for r in per_level[B]),
+        "bound_by": "+".join(sorted({r["bound_by"] for r in per_level[B]})),
         "library_ms": None,
+        # One streamed flow's worth at b1.
+        "ms_b1": sum(r["ms"] for r in per_level[1]),
+        "bound_ms_b1": sum(r["bound_ms"] for r in per_level[1]),
         "launches_streaming": serving[False],
         "launches_streaming_bw": serving[True],
     }]})

@@ -98,15 +98,31 @@ def test_kernel_wrapper_rejects_cpu_and_counts_only_launches():
     assert COST_VOLUME.launches == before
 
 
+# (B,C,H,W), md, offset in floats of the inputs from a 16-byte aligned
+# allocation. The UFlow levels of 384x640 at b8 and b1; md 1-4; C not a
+# multiple of the kernel's 4-channel chunk; W not a multiple of 4 (4-byte
+# copies) beside W=16 (16-byte copies); maps smaller than md; and an input
+# at an offset of one float, which takes the 4-byte copies at W=20.
+GPU_CASES = [
+    ((8, 32, 96, 160), 4, 0), ((8, 32, 12, 20), 4, 0), ((3, 20, 13, 37), 4, 0),
+    ((2, 8, 12, 16), 2, 0),
+    ((1, 32, 96, 160), 4, 0), ((1, 32, 48, 80), 4, 0), ((1, 32, 24, 40), 4, 0),
+    ((1, 32, 12, 20), 4, 0),
+    ((2, 6, 17, 16), 1, 0), ((2, 6, 17, 37), 1, 0), ((1, 20, 9, 6), 3, 0),
+    ((2, 3, 10, 3), 4, 0), ((1, 32, 2, 3), 4, 0), ((2, 32, 1, 1), 4, 0),
+    ((1, 32, 2, 3), 1, 0), ((1, 32, 12, 20), 4, 1),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,md", [((8, 32, 96, 160), 4), ((8, 32, 12, 20), 4),
-                                      ((3, 20, 13, 37), 4), ((2, 8, 12, 16), 2)])
-def test_cuda_kernel_matches_plain(shape, md):
+@pytest.mark.parametrize("shape,md,offset", GPU_CASES)
+def test_cuda_kernel_matches_plain(shape, md, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
-    f1 = torch.randn(shape, device="cuda", generator=g)
-    f2 = torch.randn(shape, device="cuda", generator=g)
+    n = torch.Size(shape).numel()
+    f1 = torch.randn(n + offset, device="cuda", generator=g)[offset:].view(shape)
+    f2 = torch.randn(n + offset, device="cuda", generator=g)[offset:].view(shape)
     before = COST_VOLUME.launches
     out = compute_cost_volume(f1, f2, md)
     torch.cuda.synchronize()
