@@ -24,8 +24,8 @@ _NOT_PORTED = {
 
 
 def get_model(cfg, device="cuda", seed: int = 0) -> PWCFlow:
-    """``cfg`` (the config's ``model`` section) -> an inference model on
-    ``device``, its weights drawn from ``torch.Generator().manual_seed(seed)``
+    """``cfg`` (the config's ``model`` section) -> the model on ``device``,
+    its weights drawn from ``torch.Generator().manual_seed(seed)``
     (xavier-uniform, zero bias). Load trained weights with
     ``load_state_dict`` or ``load_pretrained``."""
     if cfg.type != "uflow":
@@ -38,6 +38,7 @@ def get_model(cfg, device="cuda", seed: int = 0) -> PWCFlow:
             f"model.dtype {cfg.get('dtype')!r} is not ported yet: ROADMAP.md "
             "queue 1, 'config switches' (model.dtype)")
     dev = resolve_device(device)
-    model = PWCFlow(feature_norm=cfg.get("feature_norm", True))
+    model = PWCFlow(feature_norm=cfg.get("feature_norm", True),
+                    level_dropout=cfg.get("level_dropout", 0.0))
     init_xavier_uniform(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

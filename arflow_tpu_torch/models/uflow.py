@@ -7,9 +7,16 @@ resolution; two bilinear 2x upsamples back to full resolution. Returns 6
 flows, finest first: [full, 1/2, 1/4 (refined), 1/8, 1/16, 1/32].
 
 Only the gates-off math is ported: none of the JAX package's TPU relayouts
-(W-fold pyramid, H-fold decoder, pyramid batching, subpixel deconv, split
-decoder, int8). Module and ``state_dict`` keys are the reference's, so a
-checkpoint written by ``arflow-to-torch`` loads with ``strict=True``.
+(W-fold pyramid, H-fold decoder, pyramid and bidirectional batching,
+subpixel deconv, split decoder, int8). Module and ``state_dict`` keys are
+the reference's, so a checkpoint written by ``arflow-to-torch`` loads with
+``strict=True``.
+
+With ``train=True`` and ``level_dropout`` p > 0, whole levels drop out as in
+the JAX package: one scalar draw ``keep = U[0,1) > p`` per call, on the
+level's ``[context, flow]`` after each decoder and on the refinement, so 5
+draws per ``forward_2_frames``. The draws come from the ``torch.Generator``
+passed to ``forward``, never from a global one.
 
 Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
 """
@@ -41,13 +48,6 @@ REFINEMENT_FILTERS = ((128, 1), (128, 2), (128, 4), (96, 8), (64, 16), (32, 1))
 CONTEXT_CHANNELS = 32
 MAX_DISPLACEMENT = 4
 
-TRAINING_NOT_PORTED = (
-    "training (UFlowLoss, optimizer and trainer, level dropout, the cost "
-    "volume's backward kernel) is not ported yet: ROADMAP.md queue 1, "
-    "'the training slice'"
-)
-
-
 class PWCFeaturePyramid(nn.Module):
     """``PYRAMID_FILTERS`` convs per level; each level's first conv has
     stride 2. Input in [0, 1] is rescaled to [-1, 1]."""
@@ -74,11 +74,12 @@ class PWCFeaturePyramid(nn.Module):
 
 
 class PWCFlow(nn.Module):
-    """UFlow PWC optical-flow network, inference."""
+    """UFlow PWC optical-flow network."""
 
-    def __init__(self, feature_norm: bool = True):
+    def __init__(self, feature_norm: bool = True, level_dropout: float = 0.0):
         super().__init__()
         self.feature_norm = feature_norm
+        self.level_dropout = level_dropout
         self._feature_pyramid_extractor = PWCFeaturePyramid()
 
         feat = PYRAMID_FILTERS[-1][1]
@@ -116,8 +117,18 @@ class PWCFlow(nn.Module):
         """NCHW image in [0, 1] -> per-level NCHW features, finest first."""
         return self._feature_pyramid_extractor(img)
 
-    def forward_2_frames(self, fp1: list, fp2: list) -> list:
-        """Coarse-to-fine flow between two feature pyramids; NCHW flows."""
+    def _maybe_level_dropout(self, tensors, generator):
+        """Multiply all of ``tensors`` by one draw ``U[0,1) > p`` from
+        ``generator``; as they are without a generator (not training)."""
+        if generator is None:
+            return tensors
+        keep = torch.rand((), generator=generator, device=generator.device)
+        keep = (keep > self.level_dropout).to(tensors[0])
+        return [t * keep for t in tensors]
+
+    def forward_2_frames(self, fp1: list, fp2: list, generator=None) -> list:
+        """Coarse-to-fine flow between two feature pyramids; NCHW flows.
+        With ``generator``, level dropout draws from it (training)."""
         flow = flow_up = context = context_up = None
         flows = []
         for level in range(NUM_LEVELS - 1, 0, -1):
@@ -145,6 +156,8 @@ class PWCFlow(nn.Module):
                 if i + 1 < len(hidden):
                     x = torch.cat([x, context], dim=1)
             flow = self._flow_layers[level][-1](context)
+            context, flow = self._maybe_level_dropout([context, flow],
+                                                      generator)
 
             if flow_up is not None:
                 flow = flow + flow_up
@@ -153,22 +166,34 @@ class PWCFlow(nn.Module):
             flows.insert(0, flow)
 
         refinement = self._refine_model(torch.cat([context, flow], dim=1))
+        (refinement,) = self._maybe_level_dropout([refinement], generator)
         flows[0] = flow + refinement
         flows.insert(0, upsample(flows[0], is_flow=True))
         flows.insert(0, upsample(flows[0], is_flow=True))
         return flows
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
-                with_bk: bool = True, train: bool = False) -> dict:
+                with_bk: bool = True, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
         """Images NHWC (B,H,W,3) in [0, 1] -> {'flows_fw'[, 'flows_bw']},
-        each 6 NHWC flows (B,h,w,2), finest first."""
-        if train:
-            raise NotImplementedError(TRAINING_NOT_PORTED)
+        each 6 NHWC flows (B,h,w,2), finest first.
+
+        ``train=True`` turns level dropout on; it draws from ``generator``,
+        which it then needs unless ``level_dropout`` is 0. The backward
+        flows take their own draws after the forward ones."""
+        if train and self.level_dropout > 0:
+            if generator is None:
+                raise ValueError("PWCFlow(train=True) with level_dropout > 0 "
+                                 "needs a torch.Generator")
+        else:
+            generator = None
         fp1 = self.feature_pyramid(to_nchw(img1))
         fp2 = self.feature_pyramid(to_nchw(img2))
-        res = {"flows_fw": [to_nhwc(f) for f in self.forward_2_frames(fp1, fp2)]}
+        res = {"flows_fw": [to_nhwc(f) for f in
+                            self.forward_2_frames(fp1, fp2, generator)]}
         if with_bk:
-            res["flows_bw"] = [to_nhwc(f) for f in self.forward_2_frames(fp2, fp1)]
+            res["flows_bw"] = [to_nhwc(f) for f in
+                               self.forward_2_frames(fp2, fp1, generator)]
         return res
 
 

@@ -1,12 +1,23 @@
 """Tensor ops of the UFlow path (NCHW)."""
 
+from arflow_tpu_torch.ops.census import (  # noqa: F401
+    abs_robust_loss,
+    census_loss,
+    census_transform,
+    rgb_to_grayscale,
+    robust_l1,
+    soft_hamming,
+    zero_mask_border,
+)
 from arflow_tpu_torch.ops.cost_volume import (  # noqa: F401
     compute_cost_volume,
     compute_cost_volume_reference,
     normalize_features,
 )
+from arflow_tpu_torch.ops.occlusion import compute_range_map  # noqa: F401
 from arflow_tpu_torch.ops.resize import (  # noqa: F401
     downsample,
+    image_grads,
     resize_bilinear,
     upsample,
 )

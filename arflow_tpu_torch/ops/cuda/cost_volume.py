@@ -1,16 +1,15 @@
-"""Local-correlation cost volume: the CUDA kernel, its plain version and
-the autograd Function that dispatches between them.
+"""Local-correlation cost volume: the CUDA kernels, their plain versions
+and the autograd Function that dispatches between them.
 
-The kernel (``arflow_tpu_torch/csrc/cost_volume.cu``) replaces the TPU
-kernels ``arflow_tpu/ops/pallas/cost_volume_pallas.py:_fwd_kernel_v2`` and
-``_fwd_kernel``; its source says what bounds it and how its design meets
-that. Layout is NCHW: f1, f2 ``(B,C,H,W)`` give ``(B,(2md+1)**2,H,W)`` with
-dy-major displacement channels.
+The forward kernel (``arflow_tpu_torch/csrc/cost_volume.cu``) replaces the
+TPU kernels ``arflow_tpu/ops/pallas/cost_volume_pallas.py:_fwd_kernel_v2``
+and ``_fwd_kernel``; the backward kernel (``csrc/cost_volume_bwd.cu``)
+replaces their custom VJP, ``_grad_shifted``. Each source says what bounds
+it and how its design meets that. Layout is NCHW: f1, f2 ``(B,C,H,W)`` give
+``(B,(2md+1)**2,H,W)`` with dy-major displacement channels.
 
-``CostVolume`` runs the kernel on a CUDA tensor and the plain version on a
-CPU tensor; there is no fallback between them. Its backward is the plain
-shifted-product adjoint on either device, as in the JAX package, whose
-backward (``_grad_shifted``) is XLA and not Pallas.
+``CostVolume`` runs the kernels on CUDA tensors and the plain versions on
+CPU tensors, forward and backward; there is no fallback between them.
 """
 
 from __future__ import annotations
@@ -27,6 +26,13 @@ COST_VOLUME = Kernel(
     source="arflow_tpu_torch/csrc/cost_volume.cu",
     replaces="arflow_tpu/ops/pallas/cost_volume_pallas.py:201 _fwd_kernel_v2 "
              "(pallas_call :267); :67 _fwd_kernel (pallas_call :96)",
+)
+COST_VOLUME_BWD = Kernel(
+    name="cost_volume_bwd",
+    source="arflow_tpu_torch/csrc/cost_volume_bwd.cu",
+    replaces="arflow_tpu/ops/pallas/cost_volume_pallas.py:141 _grad_shifted "
+             "(the custom VJP of cost_volume_pallas_v2 :226/:300 and of "
+             "cost_volume_pallas :174/:188)",
 )
 
 _MAX_DISPLACEMENT = 4  # the kernel's template instances: md in 1..4
@@ -81,8 +87,20 @@ def _lib():
     return lib
 
 
+def _bwd_lib():
+    lib = load("cost_volume_bwd")
+    fn = lib.arflow_cost_volume_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        blocks = lib.arflow_cost_volume_bwd_blocks
+        blocks.argtypes = [ctypes.c_int] * 6
+        blocks.restype = ctypes.c_longlong
+    return lib
+
+
 def cost_volume_blocks(shape, max_displacement: int = 4) -> int:
-    """Grid size (blocks) of the kernel's launch for f1 of ``shape``
+    """Grid size (blocks) of the forward kernel's launch for f1 of ``shape``
     (B,C,H,W) on the current CUDA device."""
     b, _, h, w = shape
     n = _lib().arflow_cost_volume_blocks(b, h, w, max_displacement)
@@ -92,29 +110,50 @@ def cost_volume_blocks(shape, max_displacement: int = 4) -> int:
     return n
 
 
-def cost_volume_kernel(f1: torch.Tensor, f2: torch.Tensor,
-                       max_displacement: int = 4) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronization)."""
-    md = max_displacement
+def cost_volume_grad_blocks(shape, max_displacement: int = 4,
+                            grads: int = 2) -> int:
+    """Grid size (blocks) of the backward kernel's launch for f1 of
+    ``shape`` (B,C,H,W) and ``grads`` gradients on the current CUDA
+    device."""
+    b, c, h, w = shape
+    n = _bwd_lib().arflow_cost_volume_bwd_blocks(b, c, h, w, max_displacement,
+                                                 grads)
+    if n < 0:
+        raise ValueError(f"cost_volume_bwd kernel refuses shape {tuple(shape)}, "
+                         f"md={max_displacement}")
+    return n
+
+
+def _check(name: str, f1: torch.Tensor, f2: torch.Tensor, md: int) -> None:
+    """What both kernels take: f1, f2 equal float32 contiguous (B,C,H,W) on
+    one CUDA device, 1 <= md <= 4, sizes within their grids."""
     if f1.device.type != "cuda" or f2.device != f1.device:
         raise ValueError(
-            f"cost_volume kernel needs f1, f2 on one CUDA device, got "
+            f"{name} kernel needs f1, f2 on one CUDA device, got "
             f"{f1.device} and {f2.device}")
     if f1.dtype != torch.float32 or f2.dtype != torch.float32:
         raise TypeError(
-            f"cost_volume kernel takes float32, got {f1.dtype}/{f2.dtype} "
+            f"{name} kernel takes float32, got {f1.dtype}/{f2.dtype} "
             "(bf16 comes with the model.dtype roadmap item)")
     if f1.dim() != 4 or f1.shape != f2.shape:
         raise ValueError(
-            f"cost_volume kernel needs equal (B,C,H,W) shapes, got "
+            f"{name} kernel needs equal (B,C,H,W) shapes, got "
             f"{tuple(f1.shape)} and {tuple(f2.shape)}")
     if not (f1.is_contiguous() and f2.is_contiguous()):
-        raise ValueError("cost_volume kernel needs contiguous NCHW inputs")
+        raise ValueError(f"{name} kernel needs contiguous NCHW inputs")
     if not 1 <= md <= _MAX_DISPLACEMENT:
-        raise ValueError(f"cost_volume kernel takes 1 <= md <= 4, got {md}")
+        raise ValueError(f"{name} kernel takes 1 <= md <= 4, got {md}")
     b, c, h, w = f1.shape
-    if max(b, c, h * w) >= 2**31 or b >= 65536:
-        raise ValueError(f"cost_volume kernel: shape {tuple(f1.shape)} too large")
+    if max(b, c, h * w) >= 2**31 or b >= 32768:
+        raise ValueError(f"{name} kernel: shape {tuple(f1.shape)} too large")
+
+
+def cost_volume_kernel(f1: torch.Tensor, f2: torch.Tensor,
+                       max_displacement: int = 4) -> torch.Tensor:
+    """Launch the forward kernel on the current stream (no synchronization)."""
+    md = max_displacement
+    _check("cost_volume", f1, f2, md)
+    b, c, h, w = f1.shape
     out = torch.empty((b, (2 * md + 1) ** 2, h, w), device=f1.device,
                       dtype=torch.float32)
     if out.numel() == 0:
@@ -130,9 +169,41 @@ def cost_volume_kernel(f1: torch.Tensor, f2: torch.Tensor,
     return out
 
 
+def cost_volume_grad_kernel(g: torch.Tensor, f1: torch.Tensor,
+                            f2: torch.Tensor, max_displacement: int = 4,
+                            need_f1: bool = True, need_f2: bool = True):
+    """Launch the backward kernel on the current stream (no
+    synchronization): ``(grad_f1, grad_f2)`` of the cost volume for its
+    output gradient ``g``, None for a gradient not asked for."""
+    md = max_displacement
+    _check("cost_volume_bwd", f1, f2, md)
+    b, c, h, w = f1.shape
+    k = (2 * md + 1) ** 2
+    if (g.device != f1.device or g.dtype != torch.float32
+            or tuple(g.shape) != (b, k, h, w) or not g.is_contiguous()):
+        raise ValueError(
+            f"cost_volume_bwd kernel needs g float32 contiguous {(b, k, h, w)} "
+            f"on {f1.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    gf1 = torch.empty_like(f1) if need_f1 else None
+    gf2 = torch.empty_like(f2) if need_f2 else None
+    if not (need_f1 or need_f2) or f1.numel() == 0:
+        return gf1, gf2
+    fn = _bwd_lib().arflow_cost_volume_bwd
+    stream = torch.cuda.current_stream(f1.device).cuda_stream
+    with torch.cuda.device(f1.device):
+        rc = fn(g.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+                gf1.data_ptr() if need_f1 else None,
+                gf2.data_ptr() if need_f2 else None, b, c, h, w, md, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"cost_volume_bwd kernel launch failed: CUDA error {rc}")
+    COST_VOLUME_BWD.launches += 1
+    return gf1, gf2
+
+
 class CostVolume(torch.autograd.Function):
-    """Kernel forward on CUDA tensors, plain forward on CPU tensors; the
-    shifted-product backward on both."""
+    """The kernels, forward and backward, on CUDA tensors; the plain
+    versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, f1, f2, max_displacement):
@@ -147,5 +218,15 @@ class CostVolume(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         f1, f2 = ctx.saved_tensors
-        gf1, gf2 = cost_volume_grad_reference(g, f1, f2, ctx.max_displacement)
-        return gf1, gf2, None
+        need_f1, need_f2 = ctx.needs_input_grad[:2]
+        if not (need_f1 or need_f2):
+            return None, None, None
+        md = ctx.max_displacement
+        if f1.device.type == "cuda":
+            gf1, gf2 = cost_volume_grad_kernel(g.contiguous(), f1, f2, md,
+                                               need_f1, need_f2)
+        elif f1.device.type == "cpu":
+            gf1, gf2 = cost_volume_grad_reference(g, f1, f2, md)
+        else:
+            raise ValueError(f"cost_volume: unsupported device {f1.device}")
+        return (gf1 if need_f1 else None), (gf2 if need_f2 else None), None

@@ -33,3 +33,10 @@ def downsample(img: torch.Tensor, is_flow: bool, scale_factor: float = 2.0
     h, w = img.shape[-2], img.shape[-1]
     out = resize_bilinear(img, (int(h / scale_factor), int(w / scale_factor)))
     return out / scale_factor if is_flow else out
+
+
+def image_grads(image: torch.Tensor, stride: int = 1):
+    """Forward differences along W, then along H, ``stride`` apart."""
+    gx = image[:, :, :, stride:] - image[:, :, :, :-stride]
+    gy = image[:, :, stride:, :] - image[:, :, :-stride, :]
+    return gx, gy

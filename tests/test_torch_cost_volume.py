@@ -1,9 +1,10 @@
-"""The port's cost volume against the JAX reference and both Pallas kernels.
+"""The port's cost volume, forward and backward, against the JAX reference
+and both Pallas kernels.
 
 The Pallas kernels run in interpret mode on the CPU, as
-``tests/test_cost_volume_pallas.py`` runs them. The CUDA kernel itself runs
-only on the card (``-m gpu``); here the dispatcher and the autograd Function
-take their plain path, because the tensors lie on the CPU.
+``tests/test_cost_volume_pallas.py`` runs them. The CUDA kernels themselves
+run only on the card (``-m gpu``); here the dispatcher and the autograd
+Function take their plain path, because the tensors lie on the CPU.
 """
 
 import numpy as np
@@ -15,15 +16,21 @@ import jax.numpy as jnp
 
 from arflow_tpu.ops.cost_volume import compute_cost_volume_reference as jax_ref
 from arflow_tpu.ops.pallas.cost_volume_pallas import (
+    _grad_shifted,
     cost_volume_pallas,
     cost_volume_pallas_v2,
 )
 from arflow_tpu_torch.ops.cost_volume import (
     compute_cost_volume,
     compute_cost_volume_reference,
+    cost_volume_grad_reference,
 )
-from arflow_tpu_torch.ops.cuda import COST_VOLUME
-from arflow_tpu_torch.ops.cuda.cost_volume import CostVolume, cost_volume_kernel
+from arflow_tpu_torch.ops.cuda import COST_VOLUME, COST_VOLUME_BWD
+from arflow_tpu_torch.ops.cuda.cost_volume import (
+    CostVolume,
+    cost_volume_grad_kernel,
+    cost_volume_kernel,
+)
 
 # Shapes (B,H,W,C), md: those of tests/test_cost_volume_pallas.py, the
 # UFlow level shape (C=32, md=4) and a map smaller than md.
@@ -89,13 +96,66 @@ def test_function_grad_matches_jax_f64():
     np.testing.assert_allclose(_n(b.grad), np.asarray(g_j[1]), rtol=0, atol=1e-12)
 
 
+def _grad_case(shape, md, seed, dtype):
+    f1, f2 = _pair(shape, seed, dtype)
+    b, h, w, _ = shape
+    g = np.random.RandomState(seed + 10).randn(b, h, w, (2 * md + 1) ** 2)
+    return f1, f2, g.astype(dtype)
+
+
+@pytest.mark.parametrize("md", [1, 4])
+def test_grad_plain_matches_grad_shifted_f64(md):
+    """The plain backward against the JAX package's ``_grad_shifted``, the
+    Pallas kernels' custom VJP: W not a multiple of 4, a map smaller than
+    the window at md=4."""
+    for shape in ((2, 9, 11, 5), (1, 3, 4, 8)):
+        f1, f2, g = _grad_case(shape, md, 5, np.float64)
+        ref = _grad_shifted(jnp.asarray(g), jnp.asarray(f1), jnp.asarray(f2), md)
+        ours = cost_volume_grad_reference(_t(g), _t(f1), _t(f2), md)
+        for a, b in zip(ours, ref):
+            # Same float64 products; only the order of the sum differs.
+            np.testing.assert_allclose(_n(a), np.asarray(b), rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("md", [1, 4])
+def test_grad_plain_matches_pallas_v2_vjp_f32(md):
+    """``jax.vjp`` of the TPU default kernel (interpret mode) against the
+    port's Function backward on CPU tensors, float32."""
+    f1, f2, g = _grad_case((2, 12, 16, 8), md, 6, np.float32)
+    _, vjp = jax.vjp(lambda a, b: cost_volume_pallas_v2(a, b, md),
+                     jnp.asarray(f1), jnp.asarray(f2))
+    ref = vjp(jnp.asarray(g))
+    a = _t(f1).requires_grad_()
+    b = _t(f2).requires_grad_()
+    CostVolume.apply(a, b, md).backward(_t(g))
+    # The same float32 terms summed in the same order (measured: equal bit
+    # for bit on gradients up to 4.1); the bound leaves room for a few ulp.
+    for ours, theirs in ((a.grad, ref[0]), (b.grad, ref[1])):
+        np.testing.assert_allclose(_n(ours), np.asarray(theirs), rtol=0,
+                                   atol=1e-6)
+
+
+def test_function_backward_honours_needs_input_grad():
+    f1, f2 = _pair((1, 6, 7, 4), 7, np.float64)
+    a = _t(f1).requires_grad_()
+    b = _t(f2)
+    before = COST_VOLUME_BWD.launches
+    (CostVolume.apply(a, b, 2) ** 2).sum().backward()
+    assert a.grad is not None and b.grad is None
+    assert COST_VOLUME_BWD.launches == before  # CPU: plain version
+
+
 def test_kernel_wrapper_rejects_cpu_and_counts_only_launches():
     f1, f2 = _pair((1, 4, 5, 8), 4, np.float32)
-    before = COST_VOLUME.launches
+    before = (COST_VOLUME.launches, COST_VOLUME_BWD.launches)
     with pytest.raises(ValueError, match="CUDA"):
         cost_volume_kernel(_t(f1), _t(f2), 4)
-    compute_cost_volume(_t(f1), _t(f2), 4)  # CPU: plain version, no launch
-    assert COST_VOLUME.launches == before
+    g = torch.zeros((1, 81, 4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        cost_volume_grad_kernel(g, _t(f1), _t(f2), 4)
+    a = _t(f1).requires_grad_()
+    compute_cost_volume(a, _t(f2), 4).sum().backward()  # CPU: no launch
+    assert (COST_VOLUME.launches, COST_VOLUME_BWD.launches) == before
 
 
 # (B,C,H,W), md, offset in floats of the inputs from a 16-byte aligned
@@ -130,3 +190,42 @@ def test_cuda_kernel_matches_plain(shape, md, offset):
     # float32 sums over C in another order than the plain version's mean.
     torch.testing.assert_close(out, compute_cost_volume_reference(f1, f2, md),
                                rtol=0, atol=2e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,md,offset", GPU_CASES + [
+    ((8, 32, 64, 112), 4, 0), ((8, 32, 8, 14), 4, 0)])
+def test_cuda_grad_kernel_matches_plain(shape, md, offset):
+    """The backward kernel through the Function, at the UFlow levels of
+    384x640 and 256x448 and the ragged cases above, both gradients and each
+    alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, c, h, w = shape
+    k = (2 * md + 1) ** 2
+
+    def draw(n):
+        return torch.randn(n + offset, device="cuda", generator=gen)[offset:]
+
+    f1 = draw(b * c * h * w).view(shape)
+    f2 = draw(b * c * h * w).view(shape)
+    g = draw(b * k * h * w).view(b, k, h, w)
+    r1, r2 = cost_volume_grad_reference(g, f1, f2, md)
+    # float32 sums over k in another rounding than the plain version's
+    # (each term divided by C before the sum): a few ulp of the largest.
+    tol = 1e-5 * max(float(r1.abs().max()), float(r2.abs().max()), 1e-30)
+    before = COST_VOLUME_BWD.launches
+    a = f1.clone().requires_grad_()
+    bb = f2.clone().requires_grad_()
+    CostVolume.apply(a, bb, md).backward(g)
+    torch.cuda.synchronize()
+    assert COST_VOLUME_BWD.launches == before + 1
+    torch.testing.assert_close(a.grad, r1, rtol=0, atol=tol)
+    torch.testing.assert_close(bb.grad, r2, rtol=0, atol=tol)
+    only1, none2 = cost_volume_grad_kernel(g, f1, f2, md, True, False)
+    none1, only2 = cost_volume_grad_kernel(g, f1, f2, md, False, True)
+    torch.cuda.synchronize()
+    assert none1 is None and none2 is None
+    torch.testing.assert_close(only1, a.grad, rtol=0, atol=0)
+    torch.testing.assert_close(only2, bb.grad, rtol=0, atol=0)
