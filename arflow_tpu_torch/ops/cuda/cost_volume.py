@@ -4,9 +4,11 @@ and the autograd Function that dispatches between them.
 The forward kernel (``arflow_tpu_torch/csrc/cost_volume.cu``) replaces the
 TPU kernels ``arflow_tpu/ops/pallas/cost_volume_pallas.py:_fwd_kernel_v2``
 and ``_fwd_kernel``; the backward kernel (``csrc/cost_volume_bwd.cu``)
-replaces their custom VJP, ``_grad_shifted``. Each source says what bounds
-it and how its design meets that. Layout is NCHW: f1, f2 ``(B,C,H,W)`` give
-``(B,(2md+1)**2,H,W)`` with dy-major displacement channels.
+replaces their custom VJP, ``_grad_shifted``, and computes both gradients
+as one gather (``grad_f2`` with ``g`` mirrored and shifted). Each source
+says what bounds it and how its design meets that. Layout is NCHW: f1, f2
+``(B,C,H,W)`` give ``(B,(2md+1)**2,H,W)`` with dy-major displacement
+channels.
 
 ``CostVolume`` runs the kernels on CUDA tensors and the plain versions on
 CPU tensors, forward and backward; there is no fallback between them.

@@ -301,11 +301,18 @@ def cost_volume_grad_bound_ms(b, c, h, w, md=MD):
 
 # Ragged shapes, (B,C,H,W), md, offset in floats from a 16-byte aligned
 # allocation: C not a multiple of the channel chunk, W not a multiple of 4,
-# maps smaller than md, md 1-3, and (last) inputs one float off alignment.
+# maps smaller than md, md 1-3, inputs one or two floats off alignment; and
+# shapes that cross the backward kernel's tiles and 32-channel block (W =
+# 65, 63, 66 and 68, H = 5 and 9, C = 33 and 9).
 RAGGED = [((3, 20, 13, 37), MD, 0), ((1, 32, 2, 3), MD, 0),
           ((2, 32, 1, 1), MD, 0), ((2, 3, 6, 6), 1, 0),
           ((2, 5, 9, 16), 2, 0), ((1, 7, 11, 3), 3, 0),
-          ((1, 32, 12, 20), MD, 1)]
+          ((1, 32, 12, 20), MD, 1),
+          ((2, 33, 5, 65), MD, 0), ((1, 9, 5, 63), MD, 0),
+          ((2, 33, 5, 68), MD, 0), ((1, 9, 5, 63), 1, 0),
+          ((2, 33, 5, 65), 2, 0), ((1, 9, 6, 63), 3, 0),
+          ((1, 32, 12, 20), MD, 2), ((8, 9, 9, 65), MD, 0),
+          ((8, 33, 9, 66), 2, 0)]
 
 
 def randn_at(shape, offset, gen, dev):

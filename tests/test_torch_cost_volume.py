@@ -117,6 +117,45 @@ def test_grad_plain_matches_grad_shifted_f64(md):
             np.testing.assert_allclose(_n(a), np.asarray(b), rtol=0, atol=1e-13)
 
 
+def _one_gather(G, F, md):
+    """out[b,c,p] = (1/C) sum_k G[b,k,p] F[b,c,p+d_k], F zero outside the
+    image: the form in which the backward kernel computes both gradients."""
+    n = 2 * md + 1
+    c, h, w = F.shape[-3:]
+    fp = torch.nn.functional.pad(F, (md, md, md, md))
+    out = torch.zeros_like(F)
+    for i in range(n):
+        for j in range(n):
+            out = out + G[:, i * n + j:i * n + j + 1] * fp[:, :, i:i + h, j:j + w]
+    return out / c
+
+
+def _mirrored_shifted(g, md):
+    """G[b,k,p] = g[b,K-1-k,p+d_k], zero outside the image: gf2's G."""
+    n = 2 * md + 1
+    h, w = g.shape[-2:]
+    gp = torch.nn.functional.pad(g, (md, md, md, md))
+    return torch.stack([gp[:, n * n - 1 - (i * n + j), i:i + h, j:j + w]
+                        for i in range(n) for j in range(n)], dim=1)
+
+
+@pytest.mark.parametrize("md", [1, 2, 3, 4])
+def test_grad_one_gather_form_matches_grad_shifted_f64(md):
+    """Both gradients as one gather, as the backward kernel computes them:
+    gf1 with G = g and F = f2, gf2 with g mirrored and shifted and F = f1,
+    against the JAX package's ``_grad_shifted``; W not a multiple of 4 and
+    a map smaller than the window."""
+    for shape in ((2, 9, 11, 5), (1, 3, 4, 8)):
+        f1, f2, g = _grad_case(shape, md, 8, np.float64)
+        ref = _grad_shifted(jnp.asarray(g), jnp.asarray(f1), jnp.asarray(f2), md)
+        gt, f1t, f2t = _t(g), _t(f1), _t(f2)
+        ours = (_one_gather(gt, f2t, md),
+                _one_gather(_mirrored_shifted(gt, md), f1t, md))
+        for a, b in zip(ours, ref):
+            # Same float64 products; the sums run in other orders.
+            np.testing.assert_allclose(_n(a), np.asarray(b), rtol=0, atol=1e-12)
+
+
 @pytest.mark.parametrize("md", [1, 4])
 def test_grad_plain_matches_pallas_v2_vjp_f32(md):
     """``jax.vjp`` of the TPU default kernel (interpret mode) against the
@@ -192,13 +231,25 @@ def test_cuda_kernel_matches_plain(shape, md, offset):
                                rtol=0, atol=2e-6)
 
 
+# Shapes that cross the backward kernel's tiles (64x4 px on large maps,
+# 16x4 on small ones) and its 32-channel block: W = 65 and 63, H = 5, C = 33
+# (two channel parts) and C = 9, md 1-3 at W % 4 != 0, W = 68 with the
+# 16-byte copies, inputs two floats off 16-byte alignment (8-byte copies),
+# and the 64x4 tiles with 4- and 8-byte copies.
+GRAD_EDGE_CASES = [
+    ((2, 33, 5, 65), 4, 0), ((1, 9, 5, 63), 4, 0), ((2, 33, 5, 68), 4, 0),
+    ((1, 9, 5, 63), 1, 0), ((2, 33, 5, 65), 2, 0), ((1, 9, 6, 63), 3, 0),
+    ((1, 32, 12, 20), 4, 2), ((8, 9, 9, 65), 4, 0), ((8, 33, 9, 66), 2, 0),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,md,offset", GPU_CASES + [
-    ((8, 32, 64, 112), 4, 0), ((8, 32, 8, 14), 4, 0)])
+    ((8, 32, 64, 112), 4, 0), ((8, 32, 8, 14), 4, 0)] + GRAD_EDGE_CASES)
 def test_cuda_grad_kernel_matches_plain(shape, md, offset):
     """The backward kernel through the Function, at the UFlow levels of
-    384x640 and 256x448 and the ragged cases above, both gradients and each
-    alone."""
+    384x640 and 256x448, the ragged cases above and the tile edges, both
+    gradients and each alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(1)
