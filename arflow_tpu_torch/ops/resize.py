@@ -2,12 +2,35 @@
 
 The JAX package writes each resize as two interpolation-matrix products with
 torch ``F.interpolate`` weights; here it is ``F.interpolate`` itself. NCHW.
+``_resize_matrix`` keeps those weights as numpy for the host side (the data
+transforms and the resize of output flows).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) weight matrix, float32, of torch's bilinear
+    ``F.interpolate`` with ``align_corners=False``: half-pixel source
+    coordinates, clamped at 0 (the JAX function's ``"bilinear", False``;
+    its other modes serve ops the port does not have)."""
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    src = (np.arange(out_size) + 0.5) * in_size / out_size - 0.5
+    src = np.maximum(src, 0.0)
+    x0 = np.floor(src).astype(np.int64)
+    x0 = np.minimum(x0, in_size - 1)
+    x1 = np.minimum(x0 + 1, in_size - 1)
+    w1 = src - x0
+    np.add.at(m, (np.arange(out_size), x0), 1.0 - w1)
+    np.add.at(m, (np.arange(out_size), x1), w1)
+    return m.astype(np.float32)
 
 
 def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:

@@ -7,11 +7,19 @@ stay on the device until a print or record boundary, where they are fetched
 in one transfer and replayed into the meters and the log; the NaN guard
 runs at that flush and names the iteration that went non-finite.
 
+Checkpoints are ``.pth.tar`` files (``training/checkpoint.py``): the
+model's ``state_dict``, the optimizer's state, the schedule's step count,
+the level-dropout generator's state and the epoch, iteration and
+best-error counters. ``train.resume`` restores all of them, so a resumed
+run continues an unbroken one bit for bit where the data is the same (the
+augmentation's draws are not in a checkpoint, in either package).
+
 What the JAX trainer does and this one does not yet raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item, at the point where
-it would take effect: the device mesh, ``remat``, ``nan_revert``,
-``resume``, the ``stage1`` loss switch and checkpoint writing. Scalar
-summaries go to the logger; image summaries are not written.
+it would take effect: the device mesh, ``remat``, ``nan_revert`` and the
+``stage1`` loss switch. Scalar summaries go to the logger and to
+``events.jsonl`` in ``save_root`` (and TensorBoard where it imports),
+opened at the first scalar; image summaries are not written.
 """
 
 from __future__ import annotations
@@ -22,13 +30,14 @@ import numpy as np
 import torch
 
 from arflow_tpu_torch.models import load_pretrained
+from arflow_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from arflow_tpu_torch.training.optim import create_optimizer
+from arflow_tpu_torch.utils.summary import SummaryWriter
 
 # cfg.train keys the port's trainer cannot honour yet -> their ROADMAP.md item.
 _NOT_PORTED = {
     "remat": "queue 1, 'config switches' (train.remat)",
     "nan_revert": "queue 1, 'config switches' (train.nan_revert)",
-    "resume": "queue 1, 'checkpoints'",
     "valid_masks": "queue 1, 'main-path entry points' (KITTI metrics)",
 }
 
@@ -47,6 +56,10 @@ class BaseTrainer:
         for key, item in _NOT_PORTED.items():
             if cfg.get(key):
                 raise not_ported(f"train.{key}", item)
+        if cfg.get("checkpoint_backend") == "orbax":
+            raise ValueError(
+                "checkpoint_backend 'orbax' belongs to the JAX package "
+                "(arflow_tpu); the port writes .pth.tar")
         self._log = _log
         self.cfg = cfg
         self.model_cfg = model_cfg
@@ -59,6 +72,8 @@ class BaseTrainer:
 
         param = next(model.parameters())
         self.device, self.dtype = param.device, param.dtype
+        self.summary_writer = None  # opened at the first scalar
+        self.best_error = np.inf
         self.i_epoch = 0
         self.i_iter = 0
         self.optimizer = None  # lazy, from the first batch
@@ -69,7 +84,9 @@ class BaseTrainer:
 
     def _ensure_init(self):
         """At the first batch: the weights (the model's own seeded init, or
-        ``cfg.pretrained_model``), the optimizer and the dropout generator."""
+        ``cfg.pretrained_model``), the optimizer and the dropout generator;
+        then, with ``cfg.resume``, the checkpoint's state over all of
+        them."""
         if self.optimizer is not None:
             return
         if self.cfg.get("pretrained_model"):
@@ -85,6 +102,27 @@ class BaseTrainer:
         self.optimizer = create_optimizer(self.cfg, self.model, steps_per_epoch)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.cfg.get("seed", 0) + 7919)
+        if self.cfg.get("resume"):
+            self._restore_resume()
+
+    def _restore_counters(self, ckpt):
+        self.i_epoch = int(ckpt["epoch"])
+        self.i_iter = int(ckpt["i_iter"])
+        self.best_error = float(ckpt["best_error"])
+
+    def _restore_resume(self):
+        """The weights, the optimizer's state, the schedule's step count,
+        the dropout generator's state and the counters of the checkpoint
+        at ``cfg.resume``, as ``save_model`` wrote them."""
+        path = self.cfg.resume
+        ckpt = load_checkpoint(path)
+        self._log.info("=> resuming from %s (epoch %d, iter %d)", path,
+                       int(ckpt["epoch"]), int(ckpt["i_iter"]))
+        self.model.load_state_dict(ckpt["state_dict"], strict=True)
+        self.optimizer.optimizer.load_state_dict(ckpt["optimizer"])
+        self.optimizer.count = int(ckpt["opt_count"])
+        self.generator.set_state(ckpt["generator"])
+        self._restore_counters(ckpt)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -98,6 +136,10 @@ class BaseTrainer:
     # -- main loop ------------------------------------------------------------
 
     def train(self):
+        # The state is restored at the first batch (_ensure_init), but the
+        # loop's bounds and the first set_epoch need the counters now.
+        if self.optimizer is None and self.cfg.get("resume"):
+            self._restore_counters(load_checkpoint(self.cfg.resume))
         for _ in range(self.i_epoch, self.cfg.epoch_num):
             self._run_one_epoch()
             if self.i_epoch % self.cfg.valid_freq == 0 and self.valid_loader:
@@ -110,8 +152,22 @@ class BaseTrainer:
     # -- helpers --------------------------------------------------------------
 
     def save_model(self, error, name):
-        raise not_ported(f"checkpoint writing ({name}, error {error:.4f})",
-                         "queue 1, 'checkpoints'")
+        """Write ``{name}_ckpt.pth.tar`` in ``save_root``, and copy it to
+        ``{name}_model_best.pth.tar`` when ``error`` is the best yet."""
+        is_best = error < self.best_error
+        if is_best:
+            self.best_error = error
+        state = {
+            "state_dict": {k: v.detach().cpu()
+                           for k, v in self.model.state_dict().items()},
+            "epoch": self.i_epoch,
+            "i_iter": self.i_iter,
+            "best_error": float(self.best_error),
+            "optimizer": self.optimizer.optimizer.state_dict(),
+            "opt_count": self.optimizer.count,
+            "generator": self.generator.get_state(),
+        }
+        save_checkpoint(self.save_root, state, name, is_best)
 
     def _begin_epoch(self):
         """Pin the loader's shuffle order to the epoch; refuse a ``stage1``
@@ -125,6 +181,9 @@ class BaseTrainer:
 
     def _summary(self, tag, value, step):
         self._log.info("summary %s %.6g at %d", tag, value, step)
+        if self.summary_writer is None:
+            self.summary_writer = SummaryWriter(self.save_root)
+        self.summary_writer.add_scalar(tag, value, step)
 
     def _queue_step_metrics(self, metrics, batch_size, i_step, key_meters,
                             key_meter_names, am_batch_time, am_data_time):

@@ -7,9 +7,12 @@ Builds every kernel of the port from ``arflow_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
 version, runs UFlow 2-frame inference at the full width of
 ``configs/chairs_uflow.json`` (random weights from a seed), the 2-frame
-streaming engine, and training steps of that model and its ``UFlowLoss``
-through ``UFlowTrainer``; checks the outputs, and times the kernels, the
-forward, the stream and the train step with CUDA events. Each phase prints
+streaming engine, training steps of that model and its ``UFlowLoss``
+through ``UFlowTrainer``, and the entry points a user calls: ``train_main``
+on a FlyingChairs-format directory (written here from a seed) with its
+data pipeline, checkpoints and a resume, and ``inference_main`` writing
+``.flo`` files. It checks the outputs, and times the kernels, the forward,
+the stream, the train step and the entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
 the card's name and power limit (``nvidia-smi``) and ends with one line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -26,19 +29,25 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from arflow_tpu_torch import load_config
+from arflow_tpu_torch.cli import inference_main, train_main
+from arflow_tpu_torch.data import Chairs, ConcatDataset
+from arflow_tpu_torch.data.loader import DataLoader
 from arflow_tpu_torch.losses import get_loss
 from arflow_tpu_torch.losses import uflow as uflow_loss_module
-from arflow_tpu_torch.models import get_model
+from arflow_tpu_torch.models import get_model, load_pretrained
 from arflow_tpu_torch.models import uflow as uflow_module
 from arflow_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 from arflow_tpu_torch.ops.cuda.build import build, build_log
@@ -54,7 +63,10 @@ from arflow_tpu_torch.ops.cuda.cost_volume import (
 )
 from arflow_tpu_torch.serving import StreamingFlowEngine
 from arflow_tpu_torch.training import get_trainer
+from arflow_tpu_torch.training.checkpoint import load_checkpoint
+from arflow_tpu_torch.training.trainer import BaseTrainer
 from arflow_tpu_torch.training.uflow_trainer import UFlowTrainer
+from arflow_tpu_torch.utils.flow_io import read_flo, write_flo
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "chairs_uflow.json")
@@ -64,6 +76,12 @@ TB, TH, TW = 8, 256, 448  # train cell: 256x448, batch 8, float32
 TRAIN_STEPS = 20
 STREAM_FRAMES = 12
 MD = 4
+# cli cell: FlyingChairs' own 384x512, the config's batch 8; fids 6 and 18
+# are the valid split, so 30 train pairs make 3 batches with drop_last.
+CH, CW = 384, 512
+CLI_PAIRS = 32
+CLI_EPOCHS = 2
+CLI_LONG_REPEATS = 5  # a further epoch over the train pairs 5 times: 18 steps
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): memory
 # 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
@@ -702,6 +720,15 @@ def phase_train(cfg, dev, smi):
     emit({"phase": "train_time", "shape": [TB, TH, TW], "dtype": "float32",
           "ms_per_step": ms, "steps_per_s": 1e3 / ms,
           "samples_per_s": TB * 1e3 / ms, "card": smi})
+    emit({"phase": "train_profile", "shape": [TB, TH, TW],
+          **train_step_profile(one_step, ms), "card": smi})
+    return launches
+
+
+def train_step_profile(one_step, ms) -> dict:
+    """``profile_window`` over 3 train steps, with the device time of the
+    convolutions (forward, backward), the census forward, the range map and
+    the ``grid_sample`` backward."""
     groups = {
         "conv_fwd": ("aten::cudnn_convolution",
                      "aten::cudnn_convolution_transpose"),
@@ -715,10 +742,349 @@ def phase_train(cfg, dev, smi):
     }
     with mock.patch.object(uflow_loss_module, "census_loss",
                            census_range(uflow_loss_module.census_loss)):
-        profile = profile_window(one_step, 3, ms, groups)
-    emit({"phase": "train_profile", "shape": [TB, TH, TW], **profile,
+        return profile_window(one_step, 3, ms, groups)
+
+
+def write_ppm(path, img) -> None:
+    """(H, W, 3) uint8 -> binary PPM (P6), written with numpy."""
+    h, w, _ = img.shape
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h))
+        f.write(np.ascontiguousarray(img).tobytes())
+
+
+def write_chairs_dir(root, dev) -> int:
+    """CLI_PAIRS FlyingChairs-format pairs at CH x CW in ``root``: img1 a
+    smooth seeded texture, img2 the same texture moved by a per-pair
+    (dy, dx) in [-4, 4], and the .flo that shift, (u, v) = (dx, dy).
+    Returns the bytes written."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for fid in range(1, CLI_PAIRS + 1):
+        dy, dx = (3 * fid) % 9 - 4, (5 * fid) % 9 - 4
+        pair = shifted_pair(1, CH, CW, dy, dx, gen, dev)
+        for i, img in enumerate(pair, 1):
+            px = (img[0] * 255).round().to(torch.uint8).cpu().numpy()
+            write_ppm(os.path.join(root, f"{fid:05d}_img{i}.ppm"), px)
+        write_flo(os.path.join(root, f"{fid:05d}_flow.flo"),
+                  np.tile(np.float32([dx, dy]), (CH, CW, 1)))
+    return sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+
+
+def cli_config(root, save_root, epochs, resume=None):
+    """``configs/chairs_uflow.json`` with both data roots at ``root``, the
+    loss's smooth_order set to 1 (as in the train phase), and ``epochs``
+    epochs that each validate and save; the rest (hflip, hue 0.5, swapped
+    channels, batch 8, Adam, 4 workers) as the config has it."""
+    cfg = load_config(CONFIG)
+    for entry in cfg.data:
+        entry.root_chairs = root
+    cfg.loss.smooth_order = 1
+    cfg.save_root = save_root
+    cfg.train.update(epoch_num=epochs, valid_freq=1, save_iter=0)
+    if resume is not None:
+        cfg.train.resume = resume
+    return cfg
+
+
+class EntryPointProbe:
+    """While active: each train step's iteration, metric row and the
+    trainer's own data and batch laps (``am_data_time``, ``am_batch_time``);
+    each wait of a loader's consumer for a batch; and the synchronized wall
+    time of each validation and each checkpoint save."""
+
+    def __init__(self):
+        self.steps, self.waits = [], []
+        self.seconds = {"_validate_with_gt": [], "save_model": []}
+
+    @contextlib.contextmanager
+    def active(self):
+        probe = self
+        queue = UFlowTrainer._queue_step_metrics
+        loader_iter = DataLoader.__iter__
+
+        def queue_step(trainer, metrics, batch_size, i_step, *rest):
+            am_batch_time, am_data_time = rest[-2:]
+            probe.steps.append({"i_iter": trainer.i_iter, "i_step": i_step,
+                                "metrics": metrics,
+                                "data_s": am_data_time.val[0],
+                                "batch_s": am_batch_time.val[0]})
+            return queue(trainer, metrics, batch_size, i_step, *rest)
+
+        def timed_iter(loader):
+            batches = loader_iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                probe.waits.append((loader.shuffle, time.perf_counter() - t0))
+                yield batch
+
+        def timed(name):
+            method = getattr(UFlowTrainer, name)
+
+            def wrapped(trainer, *args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = method(trainer, *args, **kwargs)
+                torch.cuda.synchronize()
+                probe.seconds[name].append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(
+                UFlowTrainer, "_queue_step_metrics", queue_step))
+            stack.enter_context(mock.patch.object(DataLoader, "__iter__", timed_iter))
+            for name in self.seconds:
+                stack.enter_context(mock.patch.object(UFlowTrainer, name, timed(name)))
+            yield self
+
+
+def same_state(a, b) -> bool:
+    """Equal nested dicts/lists of tensors and numbers, bit for bit."""
+    if isinstance(a, dict):
+        return (sorted(a, key=str) == sorted(b, key=str)
+                and all(same_state(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_state, a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def trainer_state(trainer) -> dict:
+    """What a checkpoint restores, copied."""
+    return copy.deepcopy({
+        "state_dict": trainer.model.state_dict(),
+        "optimizer": trainer.optimizer.optimizer.state_dict(),
+        "opt_count": trainer.optimizer.count,
+        "generator": trainer.generator.get_state(),
+        "epoch": trainer.i_epoch, "i_iter": trainer.i_iter,
+        "best_error": trainer.best_error})
+
+
+def valid_epes(save_root) -> list:
+    with open(os.path.join(save_root, "events.jsonl")) as f:
+        return [r["value"] for r in map(json.loads, f)
+                if r["tag"] == "Valid_EPE_0"]
+
+
+def phase_cli(dev, smi):
+    """The main path through the entry points a user calls, on a
+    FlyingChairs-format directory written here: ``train_main`` with
+    chairs_uflow.json (its data pipeline, augmentation, validation and
+    checkpoints), a resume of a checkpoint, and ``inference_main`` writing
+    ``.flo`` files."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        return run_cli_phase(tmp, dev, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_cli_phase(tmp, dev, smi):
+    log = logging.getLogger("chip_smoke")
+    root = os.path.join(tmp, "chairs")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    nbytes = write_chairs_dir(root, dev)
+    emit({"phase": "cli_data", "pairs": CLI_PAIRS, "shape": [CH, CW],
+          "bytes": nbytes, "seconds": time.perf_counter() - t0})
+    n_valid, steps_per_epoch = 2, (CLI_PAIRS - 2) // TB
+    n_steps = CLI_EPOCHS * steps_per_epoch
+
+    # Run A: CLI_EPOCHS epochs through train_main, unbroken.
+    dir_a = os.path.join(tmp, "a")
+    probe = EntryPointProbe()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with probe.active():
+        run_a = train_main(cli_config(root, dir_a, CLI_EPOCHS), log, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps_a, epochs_a = run_a.i_iter, run_a.i_epoch
+    launches = {k.name: k.launches for k in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = torch.stack([s["metrics"] for s in probe.steps]).cpu()
+    epes = valid_epes(dir_a)
+    files = sorted(os.listdir(dir_a))
+    want = {"cost_volume": 8 * n_steps + 4 * n_valid * CLI_EPOCHS,
+            "cost_volume_bwd": 8 * n_steps}
+    # The trainer's laps: data = the wait for the loader plus the copy to
+    # the card, which waits for the previous step's kernels; batch = the
+    # host's time to queue the step. A first step of an epoch also waits
+    # for the loader's threads to decode their first batches.
+    laps = [s["data_s"] + s["batch_s"] for s in probe.steps]
+    steady = [s for s in probe.steps if s["i_step"] > 0]
+    steady_laps = sum(s["data_s"] + s["batch_s"] for s in steady)
+    waits = [w for shuffled, w in probe.waits if shuffled]
+    valid_s = sum(probe.seconds["_validate_with_gt"])
+    save_s = sum(probe.seconds["save_model"])
+
+    batch = next(iter(run_a.train_loader))
+    imgs = [run_a._to_device(batch[k]) for k in ("img1", "img2", "img1_ph", "img2_ph")]
+    step_ms = cuda_ms(lambda: run_a.train_step(*imgs), iters=5, warmup=1)
+    emit({"phase": "cli_train_profile", "shape": [TB, CH, CW],
+          **train_step_profile(lambda: run_a.train_step(*imgs), step_ms),
           "card": smi})
-    return launches
+
+    # 3-step epochs never reach the loader's steady state: each starts with
+    # a wait for a whole batch decoded on one thread. A further epoch of
+    # run A's trainer over the train pairs repeated does.
+    train_loader = run_a.train_loader
+    run_a.train_loader = DataLoader(
+        ConcatDataset([train_loader.dataset] * CLI_LONG_REPEATS), batch_size=TB,
+        num_workers=train_loader.num_workers, shuffle=True, drop_last=True,
+        seed=SEED)
+    run_a.cfg.epoch_size = len(run_a.train_loader)
+    probe_long = EntryPointProbe()
+    with probe_long.active():
+        run_a._run_one_epoch()
+    torch.cuda.synchronize()
+    run_a.train_loader = train_loader
+    # steady: after the batches the loader's threads had begun at its start
+    long_steady = probe_long.steps[train_loader.num_workers + 1:]
+    long_laps = sum(s["data_s"] + s["batch_s"] for s in long_steady)
+    long_waits = [w for shuffled, w in probe_long.waits if shuffled][
+        train_loader.num_workers + 1:]
+    t1 = time.perf_counter()
+    n_batches = sum(1 for _ in run_a.train_loader)
+    loader_ms = 1e3 * (time.perf_counter() - t1) / n_batches
+    # One host thread's time per sample in each stage of the pipeline.
+    chairs = run_a.train_loader.dataset.datasets[0]
+    stage_s = {"decode": 0.0, "geometric": 0.0, "photometric": 0.0}
+    for sample in chairs.samples[:TB]:
+        t1 = time.perf_counter()
+        images, _ = chairs._load_sample(sample)
+        t2 = time.perf_counter()
+        images = chairs.geometric_transform(images)
+        t3 = time.perf_counter()
+        chairs.photometric_transform(images)
+        t4 = time.perf_counter()
+        for key, dt in zip(stage_s, (t2 - t1, t3 - t2, t4 - t3)):
+            stage_s[key] += dt
+    emit({"phase": "cli_train", "run": "A", "shape": [TB, CH, CW],
+          "epochs": epochs_a, "steps": steps_a, "launches": launches,
+          "launches_want": want, "losses": rows[:, 0].tolist(),
+          "valid_epe": epes, "files": files,
+          "seconds_train_main": seconds, "step_laps_s": laps,
+          "samples_per_s": TB * len(laps) / sum(laps),
+          "samples_per_s_steady": TB * len(steady) / steady_laps,
+          "data_time_share": sum(s["data_s"] for s in probe.steps) / sum(laps),
+          "data_time_share_steady": sum(s["data_s"] for s in steady) / steady_laps,
+          "loader_wait_s": waits, "loader_wait_share": sum(waits) / sum(laps),
+          "device_bound_ms_per_step": step_ms,
+          "long_epoch_steps": len(probe_long.steps),
+          "long_epoch_steady_steps": len(long_steady),
+          "long_epoch_steady_samples_per_s": TB * len(long_steady) / long_laps,
+          "long_epoch_steady_data_time_share":
+              sum(s["data_s"] for s in long_steady) / long_laps,
+          "long_epoch_steady_loader_wait_share": sum(long_waits) / long_laps,
+          "long_epoch_step_laps_s": [s["data_s"] + s["batch_s"]
+                                     for s in probe_long.steps],
+          "loader_alone_ms_per_batch": loader_ms,
+          "host_ms_per_sample": {k: 1e3 * v / TB for k, v in stage_s.items()},
+          "validation_ms_per_pair": 1e3 * (valid_s - save_s) / (n_valid * CLI_EPOCHS),
+          "save_ms": 1e3 * save_s / len(probe.seconds["save_model"]),
+          "peak_memory_gb": peak_gb, "card": smi})
+    if steps_a != n_steps or epochs_a != CLI_EPOCHS or len(rows) != n_steps:
+        raise AssertionError(f"run A: {steps_a} steps in {epochs_a} epochs, "
+                             f"not {n_steps} in {CLI_EPOCHS}")
+    if launches != want:
+        raise AssertionError(f"run A launched {launches}, not {want}")
+    if not (bool(torch.isfinite(rows).all()) and len(epes) == CLI_EPOCHS
+            and all(np.isfinite(epes))):
+        raise AssertionError(f"run A: non-finite losses or EPE {epes}")
+    missing = {"Chairs_ckpt.pth.tar", "Chairs_model_best.pth.tar",
+               "events.jsonl"} - set(files)
+    if missing:
+        raise AssertionError(f"run A wrote no {sorted(missing)}")
+    del run_a, imgs
+
+    # Runs B and C: one epoch that saves, then a resume of its checkpoint.
+    dir_b, dir_c = os.path.join(tmp, "b"), os.path.join(tmp, "c")
+    run_b = train_main(cli_config(root, dir_b, 1), log, device=dev)
+    ckpt_b = os.path.join(dir_b, "Chairs_ckpt.pth.tar")
+    restored = {}
+    restore = BaseTrainer._restore_resume
+
+    def restore_and_copy(trainer):
+        restore(trainer)
+        restored.update(trainer_state(trainer))
+
+    probe_c = EntryPointProbe()
+    with mock.patch.object(BaseTrainer, "_restore_resume", restore_and_copy), \
+            probe_c.active():
+        run_c = train_main(cli_config(root, dir_c, CLI_EPOCHS, resume=ckpt_b),
+                           log, device=dev)
+    want_b = trainer_state(run_b)
+    differ = sorted(k for k in want_b if not same_state(restored.get(k), want_b[k]))
+    iters = [s["i_iter"] for s in probe_c.steps]
+    emit({"phase": "cli_resume", "checkpoint_epoch": load_checkpoint(ckpt_b)["epoch"],
+          "restored": sorted(restored), "differ_from_saved": differ,
+          "resumed_iters": iters, "final_iter": run_c.i_iter,
+          "final_epoch": run_c.i_epoch, "valid_epe": valid_epes(dir_c)})
+    if not restored or differ:
+        raise AssertionError(f"resume restored {sorted(restored)}; differs: {differ}")
+    if iters != list(range(steps_per_epoch, n_steps)) or (
+            run_c.i_iter, run_c.i_epoch) != (n_steps, CLI_EPOCHS):
+        raise AssertionError(f"resumed run: iterations {iters}, ended at "
+                             f"{run_c.i_iter} in epoch {run_c.i_epoch}")
+    del run_b, run_c
+
+    # inference_main on the valid split with run A's best checkpoint.
+    best = os.path.join(dir_a, "Chairs_model_best.pth.tar")
+    cfg = load_config(CONFIG)
+    cfg.data = [e for e in cfg.data if e.type == "valid"]
+    cfg.data[0].update(root_chairs=root, out_root=os.path.join(tmp, "out"))
+    cfg.inference = {"pretrained_model": best, "valid_batch_size": 1, "workers": 2}
+    stamps = []
+
+    def write_and_stamp(path, flow):
+        write_flo(path, flow)
+        stamps.append(time.perf_counter())
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch("arflow_tpu_torch.utils.flow_io.write_flo", write_and_stamp):
+        written = inference_main(cfg, log, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    inf_launches = {k.name: k.launches for k in KERNELS}
+
+    model = load_pretrained(best, cfg.model, device=dev)
+    pairs = Chairs(root, split="valid")
+    errs, tols, gt_epe = [], [], []
+    for i, path in enumerate(written):
+        flow = read_flo(path)
+        if flow.shape != (CH, CW, 2) or not np.isfinite(flow).all():
+            raise AssertionError(f"{path}: shape {flow.shape} or non-finite")
+        item = pairs[i]
+        img1, img2 = (torch.from_numpy(item[k])[None].to(dev) for k in ("img1", "img2"))
+        with torch.no_grad(), mock.patch.object(
+                uflow_module, "compute_cost_volume", compute_cost_volume_reference):
+            ref = model(img1, img2, with_bk=False)["flows_fw"][0][0].cpu().numpy()
+        errs.append(float(np.abs(flow - ref).max()))
+        tols.append(FLOW_RTOL * max(float(np.abs(ref).max()), 1.0))
+        gt = item["target"]["flow"]
+        gt_epe.append(float(np.sqrt(((flow - gt) ** 2).sum(-1)).mean()))
+    emit({"phase": "cli_inference", "pairs": len(written), "shape": [CH, CW],
+          "launches": inf_launches, "flo_vs_plain_max_abs_err": errs,
+          "atol": tols, "epe_vs_ground_truth": gt_epe,
+          "wall_ms_per_pair": 1e3 * wall / max(len(written), 1),
+          "ms_first_pair_incl_load": 1e3 * (stamps[0] - t0) if stamps else None,
+          "ms_next_pairs": [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])],
+          "card": smi})
+    if len(written) != n_valid:
+        raise AssertionError(f"inference wrote {len(written)} .flo, not {n_valid}")
+    if inf_launches != {"cost_volume": 4 * n_valid, "cost_volume_bwd": 0}:
+        raise AssertionError(f"inference launched {inf_launches}")
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise AssertionError(f".flo vs the plain cost volume: {errs} > {tols}")
+    return launches, inf_launches
 
 
 def main() -> int:
@@ -737,6 +1103,7 @@ def main() -> int:
     serving = phase_serving(cfg, model, dev, smi)
     del model
     train_launches = phase_train(cfg, dev, smi)
+    cli_launches, cli_inference_launches = phase_cli(dev, smi)
     emit({"kernels": [{
         "name": COST_VOLUME.name,
         "route": "cuda",
@@ -759,6 +1126,10 @@ def main() -> int:
         "launches_streaming": serving[False],
         "launches_streaming_bw": serving[True],
         "launches_train": train_launches["cost_volume"],
+        # train_main, 2 epochs of 3 steps with validation, and inference_main
+        # on 2 pairs, at 384x512 b8 (phase cli).
+        "launches_cli": cli_launches["cost_volume"],
+        "launches_cli_inference": cli_inference_launches["cost_volume"],
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",
@@ -773,6 +1144,7 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in grad_rows),
         "bound_by": "+".join(sorted({r["bound_by"] for r in grad_rows})),
         "library_ms": None,
+        "launches_cli": cli_launches["cost_volume_bwd"],
     }]})
     # The card's name and power limit as nvidia-smi prints them, on a line
     # of their own before the result line.

@@ -1,7 +1,7 @@
 """Package-level rules of the port: it imports no JAX and nothing of
-``arflow_tpu``, its entry points default to the CUDA device and raise
-without one instead of running on the CPU, and what it does not port yet
-raises and names the roadmap item."""
+``arflow_tpu`` (nor PIL or cv2 at import), its entry points default to the
+CUDA device and raise without one instead of running on the CPU, and what
+it does not port yet raises and names the roadmap item."""
 
 import logging
 import os
@@ -40,9 +40,20 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "arflow_tpu"))
-print(len(names), bad)
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "arflow_tpu",
+                                    "PIL", "cv2"))
+print(" ".join(names), "|", bad)
 """
+
+# The entry points and the host-side pipeline, which no earlier module
+# imported: they must be among the modules checked.
+ENTRY_AND_DATA = [
+    "arflow_tpu_torch.cli", "arflow_tpu_torch.data",
+    "arflow_tpu_torch.data.datasets", "arflow_tpu_torch.data.get_dataset",
+    "arflow_tpu_torch.data.loader", "arflow_tpu_torch.data.transforms",
+    "arflow_tpu_torch.training.checkpoint", "arflow_tpu_torch.utils.flow_io",
+    "arflow_tpu_torch.utils.logger", "arflow_tpu_torch.utils.summary",
+]
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -50,8 +61,10 @@ def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 26  # every module of the package was imported
+    names, bad = out.stdout.strip().split(" | ", 1)
+    names = names.split()
+    assert len(names) >= 36  # every module of the package was imported
+    assert set(ENTRY_AND_DATA) <= set(names)
     assert bad == "[]", bad
 
 
@@ -105,11 +118,12 @@ def _batch(flow=False):
     "device_photometric_aug", "checkpoint_save", "loss_uflow_elbo",
     "trainer_uflow_elbo",
 ])
-def test_training_forward_raises_and_names_the_roadmap(case):
+def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     """Training runs (``train=True`` and the ``uflow`` trainer); each
     feature of the JAX trainer that the port does not have yet raises where
     it would take effect and names its ``ROADMAP.md`` item, instead of
-    being skipped."""
+    being skipped: resuming from the JAX package's msgpack checkpoint among
+    them. Its orbax checkpoints stay with it, and saving one raises."""
     train = dict(TRAIN)
     full = {"model": CFG, "loss": LOSS}
     kwargs, valid = {}, None
@@ -128,10 +142,13 @@ def test_training_forward_raises_and_names_the_roadmap(case):
                          "photometric_aug": {"hue": 0.5, "device": True}}]
     elif case == "checkpoint_save":
         train["save_iter"] = 0  # due after the first step's validation
+        train["checkpoint_backend"] = "orbax"
         valid = [[_batch(flow=True)]]
     full["train"] = train
     full = Config(full)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    error, match = ((ValueError, "JAX package") if case == "checkpoint_save"
+                    else (NotImplementedError, "ROADMAP.md"))
+    with pytest.raises(error, match=match):
         if case == "loss_uflow_elbo":
             get_loss(Config({"type": "uflow_elbo"}))
         if case == "trainer_uflow_elbo":
@@ -139,6 +156,6 @@ def test_training_forward_raises_and_names_the_roadmap(case):
         model = get_model(full.model, device="cpu")
         trainer = get_trainer("uflow")(
             [_batch()], valid, model, get_loss(full.loss),
-            logging.getLogger("test"), "unused", full.train,
+            logging.getLogger("test"), str(tmp_path), full.train,
             model_cfg=full.model, full_cfg=full, **kwargs)
         trainer.train()

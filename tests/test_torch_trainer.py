@@ -46,12 +46,12 @@ def _batch(rs, flow=False):
     return b
 
 
-def _trainer(train, valid=None, **overrides):
+def _trainer(save_root, train, valid=None, **overrides):
     cfg = Config(CFG)
     cfg.train.update(overrides)
     model = get_model(cfg.model, device="cpu")
     return get_trainer("uflow")(train, valid, model, get_loss(cfg.loss),
-                                logging.getLogger("test"), "unused",
+                                logging.getLogger("test"), str(save_root),
                                 cfg.train, model_cfg=cfg.model, full_cfg=cfg)
 
 
@@ -69,9 +69,9 @@ class _NanAt:
         return out
 
 
-def test_nan_guard_names_the_iteration():
+def test_nan_guard_names_the_iteration(tmp_path):
     rs = np.random.RandomState(0)
-    tr = _trainer([_batch(rs) for _ in range(3)])
+    tr = _trainer(tmp_path, [_batch(rs) for _ in range(3)])
     tr.loss_func = _NanAt(tr.loss_func, at=1)
     with pytest.raises(FloatingPointError, match="at iter 1 "):
         tr.train()
@@ -83,7 +83,7 @@ def test_pretrained_weights_and_cpu_path_launch_nothing(tmp_path):
     source = get_model(Config(CFG["model"]), device="cpu", seed=5)
     path = str(tmp_path / "w.pth.tar")
     torch.save({"epoch": 0, "state_dict": source.state_dict()}, path)
-    tr = _trainer([_batch(rs)], pretrained_model=path)
+    tr = _trainer(tmp_path, [_batch(rs)], pretrained_model=path)
     before = [k.launches for k in KERNELS]
     tr._ensure_init()
     for k, v in source.state_dict().items():
@@ -93,10 +93,10 @@ def test_pretrained_weights_and_cpu_path_launch_nothing(tmp_path):
     assert [k.launches for k in KERNELS] == before
 
 
-def test_validation_epe():
+def test_validation_epe(tmp_path):
     rs = np.random.RandomState(2)
     valid = [_batch(rs, flow=True) for _ in range(2)]
-    tr = _trainer([_batch(rs)], [valid], valid_size=10)
+    tr = _trainer(tmp_path, [_batch(rs)], [valid], valid_size=10)
     tr.train()  # one step, then validation (no save is due at iter 1)
     errors, names = tr._validate_with_gt()
     assert names == ["EPE_0"]
