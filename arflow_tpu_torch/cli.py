@@ -121,12 +121,8 @@ def train_cli(argv=None):
                         help="checkpoint to resume from (weights, optimizer "
                              "state, schedule, dropout generator, epoch, "
                              "iteration and best error)")
-    parser.add_argument("--n_gpu", type=int, default=None,
-                        help="kept for the JAX CLI's surface; one device")
     parser.add_argument("--coordinator", default=None,
                         help="multi-host training: not ported yet")
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default: cuda)")
     args = parser.parse_args(argv)
@@ -148,7 +144,6 @@ def train_cli(argv=None):
                 "valid_size": 0,
                 "workers": 1,
                 "valid_freq": 1,
-                "track_auc": True,
             }
         )
     if args.model is not None:
@@ -177,9 +172,9 @@ def inference_main(cfg, log, device="cuda"):
     the ``.flo`` paths."""
     from arflow_tpu_torch.data import DataLoader, get_dataset
     from arflow_tpu_torch.models import load_pretrained
+    from arflow_tpu_torch.ops.resize import resize_bilinear_np
     from arflow_tpu_torch.utils.flow_io import write_flo
     from arflow_tpu_torch.utils.meters import AverageMeter
-    from arflow_tpu_torch.utils.metrics import _resize_bilinear_np
 
     if "approx" in cfg.loss:
         raise NotImplementedError(
@@ -218,11 +213,11 @@ def inference_main(cfg, log, device="cuda"):
                 pred_flow = pred_flow.copy()
                 pred_flow[:, :, 0] *= ww / w
                 pred_flow[:, :, 1] *= hh / h
-                pred_flow = _resize_bilinear_np(pred_flow, (hh, ww))
+                pred_flow = resize_bilinear_np(pred_flow, (hh, ww))
                 pred_entropy = np.zeros((h, w, 2), np.float32)
                 pred_entropy[:, :, 0] += -2 * math.log(w) + 2 * math.log(ww)
                 pred_entropy[:, :, 1] += -2 * math.log(h) + 2 * math.log(hh)
-                pred_entropy = _resize_bilinear_np(pred_entropy, (hh, ww))
+                pred_entropy = resize_bilinear_np(pred_entropy, (hh, ww))
 
                 stem = os.path.join(dataset_cfg.out_root,
                                     os.path.splitext(str(rpath))[0])

@@ -15,7 +15,7 @@ import numbers
 
 import numpy as np
 
-from arflow_tpu_torch.ops.resize import _resize_matrix
+from arflow_tpu_torch.ops.resize import resize_bilinear_np
 
 
 class Compose:
@@ -57,51 +57,15 @@ class RandomHorizontalFlip:
         return inputs
 
 
-def _matrix_taps(m):
-    """(i0, w0, i1, w1) per output row of a bilinear resize matrix.
-
-    A bilinear row has at most 2 nonzeros, so the row-dot over the whole
-    source axis collapses to a 2-tap gather. The taps are ordered
-    i0 <= i1, the dense product's accumulation order, so the result equals
-    the matrix product bit for bit (the skipped terms are exact +0.0
-    adds).
-    """
-    idx = np.argsort(m, axis=1)[:, -2:]
-    i0 = idx.min(axis=1)
-    i1 = idx.max(axis=1)
-    rows = np.arange(m.shape[0])
-    return i0, m[rows, i0], i1, m[rows, i1]
-
-
 class Scale:
-    """Deterministic bilinear scaling, align_corners=False, as two 2-tap
-    gather passes over the resize matrices' rows (see ``_matrix_taps``).
-    Takes (..., H, W, C) arrays."""
+    """Deterministic bilinear scaling, align_corners=False
+    (``ops.resize.resize_bilinear_np``). Takes (..., H, W, C) arrays."""
 
     def __init__(self, size):
         self.size = tuple(size)
-        self._taps = {}
-
-    def _axis_taps(self, n, out):
-        key = (n, out)
-        if key not in self._taps:
-            self._taps[key] = _matrix_taps(_resize_matrix(n, out))
-        return self._taps[key]
 
     def __call__(self, inputs):
-        h, w = inputs.shape[-3:-1]
-        oh, ow = self.size
-        if (h, w) == (oh, ow):
-            return inputs
-        dt = inputs.dtype
-        i0, w0, i1, w1 = self._axis_taps(h, oh)
-        out = (
-            inputs[..., i0, :, :] * w0[:, None, None]
-            + inputs[..., i1, :, :] * w1[:, None, None]
-        )
-        j0, v0, j1, v1 = self._axis_taps(w, ow)
-        out = out[..., j0, :] * v0[:, None] + out[..., j1, :] * v1[:, None]
-        return out.astype(dt)
+        return resize_bilinear_np(inputs, self.size)
 
 
 def get_geometric_transforms(cfg, rng=None):

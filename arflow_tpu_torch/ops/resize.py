@@ -2,8 +2,9 @@
 
 The JAX package writes each resize as two interpolation-matrix products with
 torch ``F.interpolate`` weights; here it is ``F.interpolate`` itself. NCHW.
-``_resize_matrix`` keeps those weights as numpy for the host side (the data
-transforms and the resize of output flows).
+``_resize_matrix`` keeps those weights as numpy for the host side, and
+``resize_bilinear_np`` applies them there (the data transforms' ``Scale``
+and the resize of output flows in ``inference_main``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,43 @@ def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     np.add.at(m, (np.arange(out_size), x0), 1.0 - w1)
     np.add.at(m, (np.arange(out_size), x1), w1)
     return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix_taps(in_size: int, out_size: int):
+    """(i0, w0, i1, w1) per output row of ``_resize_matrix``.
+
+    A bilinear row has at most 2 nonzeros, so the row-dot over the whole
+    source axis collapses to a 2-tap gather. The taps are ordered
+    i0 <= i1, the dense product's accumulation order, so the result equals
+    the matrix product bit for bit (the skipped terms are exact +0.0
+    adds).
+    """
+    m = _resize_matrix(in_size, out_size)
+    idx = np.argsort(m, axis=1)[:, -2:]
+    i0 = idx.min(axis=1)
+    i1 = idx.max(axis=1)
+    rows = np.arange(m.shape[0])
+    return i0, m[rows, i0], i1, m[rows, i1]
+
+
+def resize_bilinear_np(inputs: np.ndarray, out_hw) -> np.ndarray:
+    """(..., H, W, C) -> (..., out_h, out_w, C) in numpy, bilinear with
+    align_corners=False, as two 2-tap gather passes (``_matrix_taps``).
+    One numpy path that needs neither cv2 nor a device."""
+    h, w = inputs.shape[-3:-1]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if (h, w) == (oh, ow):
+        return inputs
+    dt = inputs.dtype
+    i0, w0, i1, w1 = _matrix_taps(h, oh)
+    out = (
+        inputs[..., i0, :, :] * w0[:, None, None]
+        + inputs[..., i1, :, :] * w1[:, None, None]
+    )
+    j0, v0, j1, v1 = _matrix_taps(w, ow)
+    out = out[..., j0, :] * v0[:, None] + out[..., j1, :] * v1[:, None]
+    return out.astype(dt)
 
 
 def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:

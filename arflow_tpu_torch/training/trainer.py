@@ -78,6 +78,7 @@ class BaseTrainer:
         self.i_iter = 0
         self.optimizer = None  # lazy, from the first batch
         self.generator = None
+        self._resume_ckpt = None  # read by train(), applied at the first batch
         self._pending_metrics = []  # (i_iter, i_step, batch size, device row)
 
     # -- init ---------------------------------------------------------------
@@ -85,8 +86,8 @@ class BaseTrainer:
     def _ensure_init(self):
         """At the first batch: the weights (the model's own seeded init, or
         ``cfg.pretrained_model``), the optimizer and the dropout generator;
-        then, with ``cfg.resume``, the checkpoint's state over all of
-        them."""
+        then, where ``train`` read a ``cfg.resume`` checkpoint, its state
+        over all of them."""
         if self.optimizer is not None:
             return
         if self.cfg.get("pretrained_model"):
@@ -102,27 +103,19 @@ class BaseTrainer:
         self.optimizer = create_optimizer(self.cfg, self.model, steps_per_epoch)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.cfg.get("seed", 0) + 7919)
-        if self.cfg.get("resume"):
+        if self._resume_ckpt is not None:
             self._restore_resume()
 
-    def _restore_counters(self, ckpt):
-        self.i_epoch = int(ckpt["epoch"])
-        self.i_iter = int(ckpt["i_iter"])
-        self.best_error = float(ckpt["best_error"])
-
     def _restore_resume(self):
-        """The weights, the optimizer's state, the schedule's step count,
-        the dropout generator's state and the counters of the checkpoint
-        at ``cfg.resume``, as ``save_model`` wrote them."""
-        path = self.cfg.resume
-        ckpt = load_checkpoint(path)
-        self._log.info("=> resuming from %s (epoch %d, iter %d)", path,
-                       int(ckpt["epoch"]), int(ckpt["i_iter"]))
+        """The weights, the optimizer's state, the schedule's step count
+        and the dropout generator's state of the checkpoint that ``train``
+        read at ``cfg.resume``, as ``save_model`` wrote them; then the
+        checkpoint is dropped."""
+        ckpt, self._resume_ckpt = self._resume_ckpt, None
         self.model.load_state_dict(ckpt["state_dict"], strict=True)
         self.optimizer.optimizer.load_state_dict(ckpt["optimizer"])
         self.optimizer.count = int(ckpt["opt_count"])
         self.generator.set_state(ckpt["generator"])
-        self._restore_counters(ckpt)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -136,10 +129,17 @@ class BaseTrainer:
     # -- main loop ------------------------------------------------------------
 
     def train(self):
-        # The state is restored at the first batch (_ensure_init), but the
-        # loop's bounds and the first set_epoch need the counters now.
+        # The loop's bounds and the first set_epoch need the counters now;
+        # the rest of the state waits for the optimizer (_ensure_init).
         if self.optimizer is None and self.cfg.get("resume"):
-            self._restore_counters(load_checkpoint(self.cfg.resume))
+            ckpt = load_checkpoint(self.cfg.resume)
+            self._log.info("=> resuming from %s (epoch %d, iter %d)",
+                           self.cfg.resume, int(ckpt["epoch"]),
+                           int(ckpt["i_iter"]))
+            self.i_epoch = int(ckpt["epoch"])
+            self.i_iter = int(ckpt["i_iter"])
+            self.best_error = float(ckpt["best_error"])
+            self._resume_ckpt = ckpt
         for _ in range(self.i_epoch, self.cfg.epoch_num):
             self._run_one_epoch()
             if self.i_epoch % self.cfg.valid_freq == 0 and self.valid_loader:

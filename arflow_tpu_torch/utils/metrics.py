@@ -1,21 +1,10 @@
 """Flow accuracy (the EPE part of ``arflow_tpu/utils/metrics.py:
-evaluate_flow``, on tensors) and the host-side resize of output flows."""
+evaluate_flow``, on tensors)."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
-
-from arflow_tpu_torch.data.transforms import Scale
-
-
-def _resize_bilinear_np(img: np.ndarray, out_hw) -> np.ndarray:
-    """(H, W, C) -> (out_h, out_w, C), bilinear with align_corners=False:
-    the 2-tap gather of ``transforms.Scale`` over torch's interpolation
-    weights. One numpy path, so a host with cv2 and one without give the
-    same result (the JAX function takes cv2 where it imports)."""
-    return Scale(tuple(int(v) for v in out_hw))(img)
 
 
 def evaluate_flow(gt_flows: torch.Tensor, pred_flows: torch.Tensor) -> list:

@@ -67,6 +67,7 @@ from arflow_tpu_torch.training.checkpoint import load_checkpoint
 from arflow_tpu_torch.training.trainer import BaseTrainer
 from arflow_tpu_torch.training.uflow_trainer import UFlowTrainer
 from arflow_tpu_torch.utils.flow_io import read_flo, write_flo
+from arflow_tpu_torch.utils.metrics import evaluate_flow
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "chairs_uflow.json")
@@ -343,11 +344,13 @@ def phase_kernels(dev, smi):
     shapes the main paths give it: the four UFlow levels at 384x640, batch
     8 (2-frame inference) and batch 1 (one streamed flow), and at 256x448,
     batch 8 (training; W = 112 ... 14, where 14 takes the 4-byte copies);
-    and checked at the ragged shapes."""
+    and checked at the levels of the cli phase's 384x512 b8 and at the
+    ragged shapes."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     levels = {"b8": level_shapes(B), "b1": level_shapes(1),
               "train": level_shapes(TB, TH, TW)}
     checks = ([(shape, MD, 0) for shapes in levels.values() for shape in shapes]
+              + [(shape, MD, 0) for shape in level_shapes(TB, CH, CW)]
               + RAGGED)
     max_err = 0.0
     for shape, md, offset in checks:
@@ -387,12 +390,13 @@ def phase_kernels(dev, smi):
 
 def phase_grad_kernels(dev, smi):
     """The backward kernel against its plain version at the training level
-    shapes of 256x448 b8 (the main path), the b8 levels of 384x640 and the
-    ragged shapes, both gradients and each alone; then timed at the
-    training levels."""
+    shapes of 256x448 b8 (the main path), the b8 levels of 384x640 and of
+    the cli phase's 384x512, and the ragged shapes, both gradients and each
+    alone; then timed at the training levels."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     train_levels = level_shapes(TB, TH, TW)
-    checks = ([(shape, MD, 0) for shape in train_levels + level_shapes(B)]
+    checks = ([(shape, MD, 0) for shape in
+               train_levels + level_shapes(B) + level_shapes(TB, CH, CW)]
               + RAGGED)
     max_err = 0.0
     inputs = {}
@@ -871,6 +875,32 @@ def valid_epes(save_root) -> list:
                 if r["tag"] == "Valid_EPE_0"]
 
 
+def stacked_pairs(root, split, n, dev) -> list:
+    """The first ``n`` pairs of ``split`` as the dataset decodes them,
+    without augmentation: img1, img2 and the ground-truth flow, each
+    stacked (n, H, W, C) on ``dev``."""
+    pairs = Chairs(root, split=split)
+    items = [pairs[i] for i in range(n)]
+    return [torch.from_numpy(np.stack([it[k] for it in items])).to(dev)
+            for k in ("img1", "img2")] + [
+        torch.from_numpy(np.stack([it["target"]["flow"] for it in items])).to(dev)]
+
+
+@torch.no_grad()
+def fixed_batch_loss(model, loss_func, img1, img2) -> float:
+    """The training loss of ``model`` on one batch, with neither
+    augmentation nor level dropout."""
+    return float(loss_func(model(img1, img2, with_bk=True), img1, img2)["total"])
+
+
+@torch.no_grad()
+def pair_epes(model, img1, img2, gt) -> list:
+    """EPE of ``flows_fw[0]`` per pair, as validation measures it."""
+    return [evaluate_flow(gt[i:i + 1], model(img1[i:i + 1], img2[i:i + 1],
+                                             with_bk=False)["flows_fw"][0])[0]
+            for i in range(len(gt))]
+
+
 def phase_cli(dev, smi):
     """The main path through the entry points a user calls, on a
     FlyingChairs-format directory written here: ``train_main`` with
@@ -924,6 +954,20 @@ def run_cli_phase(tmp, dev, smi):
     valid_s = sum(probe.seconds["_validate_with_gt"])
     save_s = sum(probe.seconds["save_model"])
 
+    # Convergence. A few Adam steps from random weights need not bring the
+    # EPE down (PERF.md: here the flows grow at first), but they must bring
+    # the loss down: each trained model's loss on one unaugmented batch of
+    # train pairs must be below the untrained model's (the seeded init that
+    # train_main starts from). A trainer that diverges fails this.
+    fixed = stacked_pairs(root, "train", TB, dev)[:2]
+    valid = stacked_pairs(root, "valid", n_valid, dev)
+    untrained = get_model(run_a.model_cfg, device=dev, seed=SEED)
+    fit = {"untrained": fixed_batch_loss(untrained, run_a.loss_func, *fixed),
+           "A": fixed_batch_loss(run_a.model, run_a.loss_func, *fixed)}
+    fit_steps = {"untrained": 0, "A": run_a.optimizer.count}
+    epe_untrained = pair_epes(untrained, *valid)
+    del untrained
+
     batch = next(iter(run_a.train_loader))
     imgs = [run_a._to_device(batch[k]) for k in ("img1", "img2", "img1_ph", "img2_ph")]
     step_ms = cuda_ms(lambda: run_a.train_step(*imgs), iters=5, warmup=1)
@@ -945,6 +989,9 @@ def run_cli_phase(tmp, dev, smi):
         run_a._run_one_epoch()
     torch.cuda.synchronize()
     run_a.train_loader = train_loader
+    # run A further: the profile's steps on one batch and the long epoch
+    fit["A_further"] = fixed_batch_loss(run_a.model, run_a.loss_func, *fixed)
+    fit_steps["A_further"] = run_a.optimizer.count
     # steady: after the batches the loader's threads had begun at its start
     long_steady = probe_long.steps[train_loader.num_workers + 1:]
     long_laps = sum(s["data_s"] + s["batch_s"] for s in long_steady)
@@ -1002,6 +1049,8 @@ def run_cli_phase(tmp, dev, smi):
                "events.jsonl"} - set(files)
     if missing:
         raise AssertionError(f"run A wrote no {sorted(missing)}")
+
+    loss_func = run_a.loss_func
     del run_a, imgs
 
     # Runs B and C: one epoch that saves, then a resume of its checkpoint.
@@ -1033,6 +1082,15 @@ def run_cli_phase(tmp, dev, smi):
             run_c.i_iter, run_c.i_epoch) != (n_steps, CLI_EPOCHS):
         raise AssertionError(f"resumed run: iterations {iters}, ended at "
                              f"{run_c.i_iter} in epoch {run_c.i_epoch}")
+    fit["C"] = fixed_batch_loss(run_c.model, loss_func, *fixed)
+    fit_steps["C"] = run_c.optimizer.count
+    emit({"phase": "cli_convergence", "fixed_batch": [TB, CH, CW],
+          "fixed_batch_loss": fit, "optimizer_steps": fit_steps,
+          "valid_epe_untrained": epe_untrained, "valid_epe_A": epes,
+          "valid_epe_C": valid_epes(dir_c)})
+    if not all(np.isfinite(v) and v < fit["untrained"]
+               for k, v in fit.items() if k != "untrained"):
+        raise AssertionError(f"training did not lower the loss: {fit}")
     del run_b, run_c
 
     # inference_main on the valid split with run A's best checkpoint.

@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from arflow_tpu_torch import Config, cli
+from arflow_tpu_torch.data import Chairs
 from arflow_tpu_torch.models import get_model
 from arflow_tpu_torch.ops.cuda import KERNELS
 from arflow_tpu_torch.utils.flow_io import read_flo
-from torch_data_util import make_chairs_dir
+from torch_data_util import make_chairs_dir, make_shifted_chairs_dir
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "chairs_uflow.json")
@@ -72,6 +73,28 @@ def test_train_main_one_epoch_on_cpu(tmp_path):
         ckpt = torch.load(save_root / name, weights_only=True)
         assert ckpt["epoch"] == 1 and ckpt["i_iter"] == 3
         assert ckpt["best_error"] == epe[0]
+
+
+def test_train_main_lowers_the_loss_on_cpu(tmp_path):
+    # The chip phase's convergence bound, small: after 2 epochs of 3 steps
+    # the model's loss on one unaugmented batch of train pairs is below
+    # that of the untrained model train_main starts from.
+    root = make_shifted_chairs_dir(tmp_path / "chairs",
+                                   np.random.RandomState(1), 7, H, W)
+    cfg = chairs_cfg(root, tmp_path / "run", epoch_num=2)
+    untrained = get_model(cfg.model, device="cpu", seed=cfg.seed)
+    trainer = cli.train_main(cfg, log, device="cpu")
+    pairs = Chairs(str(root), split="train")
+    img1, img2 = (torch.from_numpy(np.stack([pairs[i][k] for i in range(4)]))
+                  for k in ("img1", "img2"))
+
+    def fixed_batch_loss(model):
+        with torch.no_grad():
+            res = model(img1, img2, with_bk=True)
+            return float(trainer.loss_func(res, img1, img2)["total"])
+
+    assert trainer.optimizer.count == 6
+    assert fixed_batch_loss(trainer.model) < fixed_batch_loss(untrained)
 
 
 def _inference_cfg(module_config, root, out_root, ckpt):

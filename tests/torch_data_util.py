@@ -4,6 +4,7 @@ and CLI tests: ``{fid:05d}_img{1,2}.ppm`` written with numpy and
 
 import numpy as np
 
+from arflow_tpu_torch.ops.resize import resize_bilinear_np
 from arflow_tpu_torch.utils.flow_io import write_flo
 
 
@@ -25,4 +26,23 @@ def make_chairs_dir(root, rs, n, h, w):
                       (rs.rand(h, w, 3) * 255).astype(np.uint8))
         write_flo(str(root / f"{fid:05d}_flow.flo"),
                   rs.randn(h, w, 2).astype(np.float32))
+    return root
+
+
+def make_shifted_chairs_dir(root, rs, n, h, w):
+    """``n`` pairs, fids 1..n, in ``root``: img1 a smooth random texture,
+    img2 the same texture moved by a whole (dy, dx) in [-3, 3], and that
+    shift, (u, v) = (dx, dy), as the flow."""
+    root.mkdir(parents=True, exist_ok=True)
+    for fid in range(1, n + 1):
+        dy, dx = rs.randint(-3, 4, size=2)
+        coarse = rs.rand(h // 8 + 2, w // 8 + 2, 3).astype(np.float32)
+        tex = resize_bilinear_np(coarse, (h + 8, w + 8))
+        img1 = tex[4:4 + h, 4:4 + w]
+        img2 = tex[4 - dy:4 - dy + h, 4 - dx:4 - dx + w]
+        for i, img in ((1, img1), (2, img2)):
+            write_ppm(root / f"{fid:05d}_img{i}.ppm",
+                      np.round(img * 255).astype(np.uint8))
+        write_flo(str(root / f"{fid:05d}_flow.flo"),
+                  np.tile(np.float32([dx, dy]), (h, w, 1)))
     return root
