@@ -1,12 +1,14 @@
-"""Command-line entry points of the port: training and inference from a
-config, as ``arflow_tpu/cli.py`` has them.
+"""Command-line entry points of the port: training, inference and the
+offline evaluation of its outputs, as ``arflow_tpu/cli.py`` has them.
 
     arflow-torch-train -c configs/chairs_uflow.json [--device cpu]
     arflow-torch-inference -c cfg.json -m ckpt.pth.tar [--device cpu]
-    python -m arflow_tpu_torch.cli train|inference ...
+    arflow-torch-evaluate-flo --pred_root out/ --gt_root gt/
+    python -m arflow_tpu_torch.cli train|inference|evaluate-flo ...
 
-Both run on the CUDA device unless ``--device`` (``device=``) says
-otherwise, and raise without a card instead of dropping to the CPU.
+Training and inference run on the CUDA device unless ``--device``
+(``device=``) says otherwise, and raise without a card instead of dropping
+to the CPU; the evaluation is numpy on the host.
 """
 
 from __future__ import annotations
@@ -167,19 +169,23 @@ def inference_main(cfg, log, device="cuda"):
     """Write a ``.flo`` flow and a ``.npy`` entropy map per sample of each
     valid dataset of ``cfg`` under its ``out_root``, at the sample's
     original size, from the ``cfg.inference.pretrained_model`` weights.
-    The entropy of the deterministic ``uflow`` model is zero before the
-    resize's log-scale correction, as the JAX package writes it. Returns
-    the ``.flo`` paths."""
+    Returns the ``.flo`` paths.
+
+    The entropy is ``extract_uv_entropy`` of ``cfg.loss.approx`` (a
+    (u, v) log-std map), zero where the config has no ``approx`` (the
+    deterministic ``uflow`` model); resizing it to the original size adds
+    the log-scale terms ``-2 log w + 2 log ww`` (and for v, of h), as the
+    JAX package writes it. The ``mixture`` approximation draws its
+    Monte-Carlo samples from a generator seeded 0 for each batch, as the
+    JAX one does from ``PRNGKey(0)``; the two draw different numbers, so
+    their ``.npy`` differ by Monte-Carlo noise."""
     from arflow_tpu_torch.data import DataLoader, get_dataset
     from arflow_tpu_torch.models import load_pretrained
     from arflow_tpu_torch.ops.resize import resize_bilinear_np
+    from arflow_tpu_torch.training.entropy import extract_uv_entropy
     from arflow_tpu_torch.utils.flow_io import write_flo
     from arflow_tpu_torch.utils.meters import AverageMeter
 
-    if "approx" in cfg.loss:
-        raise NotImplementedError(
-            "entropy outputs (loss.approx) are not ported yet: ROADMAP.md "
-            "queue 1, 'the probabilistic UFlow path'")
     dev = resolve_device(device)
     _, valid_set = get_dataset(cfg, seed=cfg.get("seed", 0))
     valid_batch_size = cfg.inference.get("valid_batch_size", 1)
@@ -190,6 +196,7 @@ def inference_main(cfg, log, device="cuda"):
     ]
     model = load_pretrained(cfg.inference.pretrained_model, cfg.model,
                             device=dev).eval()
+    has_entropy = "approx" in cfg.loss
 
     # get_dataset makes a valid set of each entry whose type is not train
     valid_cfgs = [d for d in cfg.data if d.type != "train"]
@@ -201,11 +208,17 @@ def inference_main(cfg, log, device="cuda"):
             img1, img2 = (torch.as_tensor(data[k], dtype=torch.float32,
                                           device=dev) for k in ("img1", "img2"))
             with torch.no_grad():
-                pred = model(img1, img2, with_bk=False)["flows_fw"][0][..., :2]
-            pred_np = pred.cpu().numpy()
+                res = model(img1, img2, with_bk=False)
+                flows = res["flows_fw"]
+                pred = flows[0][..., :2]
+                ent = (extract_uv_entropy(
+                    flows, cfg.loss, res,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+                    if has_entropy else torch.zeros_like(pred))
+            pred_np, ent_np = pred.cpu().numpy(), ent.cpu().numpy()
 
-            for pred_flow, orgsize, rpath in zip(
-                pred_np, data["img1_orgsize"], data["img1_rpath"]
+            for pred_flow, pred_entropy, orgsize, rpath in zip(
+                pred_np, ent_np, data["img1_orgsize"], data["img1_rpath"]
             ):
                 orgsize = np.asarray(orgsize).squeeze()
                 hh, ww = int(orgsize[0]), int(orgsize[1])
@@ -214,7 +227,7 @@ def inference_main(cfg, log, device="cuda"):
                 pred_flow[:, :, 0] *= ww / w
                 pred_flow[:, :, 1] *= hh / h
                 pred_flow = resize_bilinear_np(pred_flow, (hh, ww))
-                pred_entropy = np.zeros((h, w, 2), np.float32)
+                pred_entropy = pred_entropy.copy()
                 pred_entropy[:, :, 0] += -2 * math.log(w) + 2 * math.log(ww)
                 pred_entropy[:, :, 1] += -2 * math.log(h) + 2 * math.log(hh)
                 pred_entropy = resize_bilinear_np(pred_entropy, (hh, ww))
@@ -250,13 +263,54 @@ def inference_cli(argv=None):
     return inference_main(cfg, log, device=args.device)
 
 
+def evaluate_flo_cli(argv=None):
+    """Mean EPE, and where every ``.flo`` has its ``.npy`` entropy beside
+    it the sparsification AUC, over the ``.flo`` files under
+    ``--pred_root`` that have a ground truth at the same relative path
+    under ``--gt_root``. Prints both as the JAX package's
+    ``evaluate_flo_cli`` does; returns ``{'files', 'epe', 'auc',
+    'auc_diff'}`` (the AUCs None without entropies)."""
+    from pathlib import Path
+
+    from arflow_tpu_torch.utils.flow_io import read_flo
+    from arflow_tpu_torch.utils.metrics import evaluate_flow, evaluate_uncertainty
+
+    parser = argparse.ArgumentParser(prog="arflow-torch-evaluate-flo")
+    parser.add_argument("--pred_root", required=True)
+    parser.add_argument("--gt_root", required=True)
+    parser.add_argument("--sp_samples", type=int, default=25)
+    args = parser.parse_args(argv)
+
+    preds, gts, ents = [], [], []
+    for pred_path in sorted(Path(args.pred_root).rglob("*.flo")):
+        gt_path = Path(args.gt_root) / pred_path.relative_to(args.pred_root)
+        if not gt_path.is_file():
+            continue
+        preds.append(read_flo(str(pred_path)))
+        gts.append(read_flo(str(gt_path)))
+        ent_path = pred_path.with_suffix(".npy")
+        if ent_path.is_file():
+            ents.append(np.load(ent_path))
+    epe = evaluate_flow(gts, preds)
+    print(f"EPE: {epe[0]:.4f} over {len(preds)} files")
+    out = {"files": len(preds), "epe": float(epe[0]), "auc": None,
+           "auc_diff": None}
+    if ents and len(ents) == len(preds):
+        auc, _, _ = evaluate_uncertainty(gts, preds, ents, args.sp_samples)
+        print(f"AUC: {auc[0]:.4f} AUC_diff: {auc[1]:.4f}")
+        out.update(auc=float(auc[0]), auc_diff=float(auc[1]))
+    return out
+
+
 def main(argv=None):
-    """``python -m arflow_tpu_torch.cli train|inference [options]``."""
+    """``python -m arflow_tpu_torch.cli train|inference|evaluate-flo
+    [options]``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    commands = {"train": train_cli, "inference": inference_cli}
+    commands = {"train": train_cli, "inference": inference_cli,
+                "evaluate-flo": evaluate_flo_cli}
     if not argv or argv[0] not in commands:
         raise SystemExit("usage: python -m arflow_tpu_torch.cli "
-                         "{train,inference} [options]")
+                         "{train,inference,evaluate-flo} [options]")
     commands[argv[0]](argv[1:])
 
 

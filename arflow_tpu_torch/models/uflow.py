@@ -117,6 +117,15 @@ class PWCFlow(nn.Module):
         """NCHW image in [0, 1] -> per-level NCHW features, finest first."""
         return self._feature_pyramid_extractor(img)
 
+    def feature_pyramids(self, img: torch.Tensor) -> list:
+        """``[feature_pyramid(img)]``: the one pyramid, in the list form of
+        ``PWCProbFlow.feature_pyramids``."""
+        return [self.feature_pyramid(img)]
+
+    def decode(self, fps1: list, fps2: list) -> list:
+        """Both frames' ``feature_pyramids`` -> NCHW flows, finest first."""
+        return self.forward_2_frames(fps1[0], fps2[0])
+
     def _maybe_level_dropout(self, tensors, generator):
         """Multiply all of ``tensors`` by one draw ``U[0,1) > p`` from
         ``generator``; as they are without a generator (not training)."""

@@ -1,0 +1,253 @@
+"""Probabilistic UFlow: ``PWCProbFlow`` and ``ComponentNet`` (port of
+``arflow_tpu/models/uflow_prob.py``, the eval forward).
+
+``PWCProbFlow`` is ``PWCFlow`` with grouped output channels
+``out_channels = [L, M, N]``: L flow channels, propagated and warped; M
+log-diagonal channels, propagated with a bias of +-log 2 per upsample (-
+with ``inv_cov``); N extras (off-diagonal bands, low-rank columns) that only
+level 1 and the refinement output. Level 1's output conv has L+M+N
+channels, the coarser ones L+M. With ``n_pyramids`` K > 1, K feature
+pyramids share one decoder and their outputs are concatenated groupwise:
+[K x L means, K x M log-diagonals, K x N extras].
+
+``ComponentNet`` is two ``PWCProbFlow((2, 2, 0))`` nets whose outputs form a
+2-component mixture.
+
+Only the gates-off math is ported: none of the JAX package's TPU relayouts
+(H-fold decoder, split decoder, subpixel deconv, refinement fold). The K
+components and both directions ride the batch axis through one decoder
+pass, which keeps each sample's math. Training (level dropout) and
+``MixtureWeightsNet`` are not ported yet; ``get_model`` refuses
+``mixture_weights`` and ``forward(train=True)`` raises. Module and
+``state_dict`` keys are the reference's.
+
+Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from arflow_tpu_torch.models.layers import (
+    LEAKY_ALPHA,
+    conv2d,
+    conv_transpose2d,
+    leaky_relu,
+)
+from arflow_tpu_torch.models.uflow import (
+    CONTEXT_CHANNELS,
+    FLOW_DECODER_FILTERS,
+    MAX_DISPLACEMENT,
+    NUM_LEVELS,
+    PYRAMID_FILTERS,
+    REFINEMENT_FILTERS,
+    PWCFeaturePyramid,
+    to_nchw,
+    to_nhwc,
+)
+from arflow_tpu_torch.ops import (
+    compute_cost_volume,
+    flow_to_warp,
+    normalize_features,
+    resample,
+    upsample,
+)
+
+ELBO_TRAINING = "ROADMAP.md queue 1, 'the probabilistic UFlow path' (ELBO training)"
+
+
+def _pad_channels(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """Zero channels appended up to ``channels`` (NCHW)."""
+    return F.pad(x, (0, 0, 0, 0, 0, channels - x.shape[1]))
+
+
+class PWCProbFlow(nn.Module):
+    """UFlow PWC network with grouped probabilistic outputs."""
+
+    def __init__(self, out_channels=(2, 2, 0), inv_cov: bool = False,
+                 n_pyramids: int = 1, feature_norm: bool = True,
+                 level_dropout: float = 0.0):
+        super().__init__()
+        self.out_channels = tuple(int(c) for c in out_channels)
+        self.inv_cov = inv_cov
+        self.n_pyramids = n_pyramids
+        self.feature_norm = feature_norm
+        self.level_dropout = level_dropout  # read by the training slice
+        self.diag_bias = -math.log(2) if inv_cov else math.log(2)
+        l_ch, m_ch, n_ch = self.out_channels
+        self._feature_pyramid_extractor = nn.ModuleList(
+            PWCFeaturePyramid() for _ in range(n_pyramids))
+
+        # Every level sees [context_up, out_up (L+M), one cost volume per
+        # flow pair, features1]; the coarsest one zeros and the log-diagonal
+        # start for the first two.
+        cin0 = (CONTEXT_CHANNELS + l_ch + m_ch
+                + (l_ch // 2) * (2 * MAX_DISPLACEMENT + 1) ** 2
+                + PYRAMID_FILTERS[-1][1])
+        ctx = FLOW_DECODER_FILTERS[-1]
+        self._flow_layers = nn.ModuleList([nn.ModuleList()])
+        for level in range(1, NUM_LEVELS):
+            cin = cin0
+            layers = nn.ModuleList()
+            for c in FLOW_DECODER_FILTERS:
+                layers.append(nn.Sequential(conv2d(cin, c),
+                                            nn.LeakyReLU(LEAKY_ALPHA)))
+                cin += c
+            out = sum(self.out_channels) if level == 1 else l_ch + m_ch
+            layers.append(conv2d(ctx, out))
+            self._flow_layers.append(layers)
+        # As in PWCFlow, level 0's deconv is built and never applied.
+        self._context_up_layers = nn.ModuleList(
+            conv_transpose2d(ctx, CONTEXT_CHANNELS) for _ in range(NUM_LEVELS))
+
+        refine = []
+        cin = ctx + sum(self.out_channels)
+        for c, d in REFINEMENT_FILTERS:
+            refine += [conv2d(cin, c, 3, dilation=d), nn.LeakyReLU(LEAKY_ALPHA)]
+            cin = c
+        refine.append(conv2d(cin, sum(self.out_channels)))
+        self._refine_model = nn.Sequential(*refine)
+
+    def feature_pyramids(self, img: torch.Tensor) -> list:
+        """NCHW image in [0, 1] -> one per-level feature list per pyramid."""
+        return [p(img) for p in self._feature_pyramid_extractor]
+
+    def upsample_out(self, out: torch.Tensor) -> torch.Tensor:
+        """Groupwise 2x upsample: the flows scaled, the log-diagonal biased
+        by ``diag_bias`` first, the extras (where present) as they are."""
+        l_ch, m_ch, n_ch = self.out_channels
+        pieces = [upsample(out[:, :l_ch], is_flow=True)]
+        if m_ch > 0:
+            pieces.append(upsample(out[:, l_ch:l_ch + m_ch] + self.diag_bias,
+                                   is_flow=False))
+        if n_ch > 0 and out.shape[1] > l_ch + m_ch:
+            pieces.append(upsample(out[:, l_ch + m_ch:], is_flow=False))
+        return torch.cat(pieces, dim=1)
+
+    def forward_2_frames(self, fp1: list, fp2: list) -> list:
+        """Coarse-to-fine outputs between two feature pyramids, NCHW, finest
+        first: [full, 1/2, 1/4 (refined, clamped), 1/8, 1/16, 1/32]."""
+        l_ch, m_ch, _ = self.out_channels
+        out_up = context_up = None
+        outs = []
+        for level in range(NUM_LEVELS - 1, 0, -1):
+            features1, features2 = fp1[level], fp2[level]
+            first = out_up is None
+            if first:
+                b, _, h, w = features1.shape
+                out_up = torch.cat([
+                    features1.new_zeros((b, l_ch, h, w)),
+                    features1.new_full((b, m_ch, h, w),
+                                       -(NUM_LEVELS - 3) * self.diag_bias)], dim=1)
+                context_up = features1.new_zeros((b, CONTEXT_CHANNELS, h, w))
+
+            # One cost volume per flow pair. The first level's flow is zero,
+            # and warping by zero is the identity.
+            costs = []
+            for k in range(l_ch // 2):
+                warped2 = (features2 if first else
+                           resample(features2, flow_to_warp(out_up[:, 2 * k:2 * k + 2])))
+                f1n, w2n = features1, warped2
+                if self.feature_norm:
+                    f1n, w2n = normalize_features(features1, warped2)
+                costs.append(leaky_relu(
+                    compute_cost_volume(f1n, w2n, MAX_DISPLACEMENT)))
+
+            x = torch.cat([context_up, out_up, *costs, features1], dim=1)
+            hidden = self._flow_layers[level][:-1]
+            for i, layer in enumerate(hidden):
+                context = layer(x)
+                if i + 1 < len(hidden):
+                    x = torch.cat([x, context], dim=1)
+            out = self._flow_layers[level][-1](context)
+            # Level 1 adds the N extras: the propagated groups get zeros.
+            out = out + _pad_channels(out_up, out.shape[1])
+            outs.insert(0, out)
+            if level > 1:
+                out_up = self.upsample_out(out)
+                context_up = self._context_up_layers[level](context)
+
+        # Level 1's output already holds all L+M+N channels.
+        refined = out + self._refine_model(torch.cat([context, out], dim=1))
+        log_diag = refined[:, l_ch:l_ch + m_ch]
+        log_diag = (log_diag.clamp_min(-5.0) if self.inv_cov
+                    else log_diag.clamp(-10.0, 10.0))
+        outs[0] = torch.cat([refined[:, :l_ch], log_diag,
+                             refined[:, l_ch + m_ch:]], dim=1)
+        outs.insert(0, self.upsample_out(outs[0]))
+        outs.insert(0, self.upsample_out(outs[0]))
+        return outs
+
+    def flows_cat(self, groups: list) -> list:
+        """Per-pyramid output lists -> one list, concatenated groupwise."""
+        if len(groups) == 1:
+            return groups[0]
+        l_ch, m_ch, _ = self.out_channels
+        out = []
+        for level in zip(*groups):
+            pieces = [torch.cat([f[:, :l_ch] for f in level], dim=1),
+                      torch.cat([f[:, l_ch:l_ch + m_ch] for f in level], dim=1)]
+            if level[0].shape[1] > l_ch + m_ch:
+                pieces.append(torch.cat([f[:, l_ch + m_ch:] for f in level], dim=1))
+            out.append(torch.cat(pieces, dim=1))
+        return out
+
+    def _decode_groups(self, srcs: list, tgts: list) -> list:
+        """Pyramid pairs (one per component and direction) -> each pair's
+        outputs, from one decoder pass with the pairs on the batch axis."""
+        nb = srcs[0][0].shape[0]
+        fa = [torch.cat(p, dim=0) for p in zip(*srcs)]
+        fb = [torch.cat(p, dim=0) for p in zip(*tgts)]
+        outs = self.forward_2_frames(fa, fb)
+        return [[o[i * nb:(i + 1) * nb] for o in outs] for i in range(len(srcs))]
+
+    def decode(self, fps1: list, fps2: list) -> list:
+        """Both frames' pyramids (``feature_pyramids``) -> the outputs,
+        NCHW, concatenated groupwise over the pyramids."""
+        return self.flows_cat(self._decode_groups(fps1, fps2))
+
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor,
+                with_bk: bool = True, train: bool = False) -> dict:
+        """Images NHWC (B,H,W,3) in [0, 1] -> {'flows_fw'[, 'flows_bw']},
+        each 6 NHWC outputs, finest first."""
+        if train:
+            raise NotImplementedError(
+                f"training PWCProbFlow is not ported yet: {ELBO_TRAINING}")
+        nb = img1.shape[0]
+        fps = self.feature_pyramids(torch.cat([to_nchw(img1), to_nchw(img2)]))
+        fp1 = [[f[:nb] for f in fp] for fp in fps]
+        fp2 = [[f[nb:] for f in fp] for fp in fps]
+        k = self.n_pyramids
+        if with_bk:
+            groups = self._decode_groups(fp1 + fp2, fp2 + fp1)
+            res = {"flows_fw": self.flows_cat(groups[:k]),
+                   "flows_bw": self.flows_cat(groups[k:])}
+        else:
+            res = {"flows_fw": self.decode(fp1, fp2)}
+        return {key: [to_nhwc(f) for f in flows] for key, flows in res.items()}
+
+
+class ComponentNet(nn.Module):
+    """Two ``PWCProbFlow((2, 2, 0))`` nets -> a 2-component mixture: per
+    level [mean 1, mean 2, log-diagonal 1, log-diagonal 2]."""
+
+    def __init__(self, inv_cov: bool = False, feature_norm: bool = True,
+                 level_dropout: float = 0.0):
+        super().__init__()
+        kwargs = dict(out_channels=(2, 2, 0), inv_cov=inv_cov,
+                      feature_norm=feature_norm, level_dropout=level_dropout)
+        self.pwcnet1 = PWCProbFlow(**kwargs)
+        self.pwcnet2 = PWCProbFlow(**kwargs)
+
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor,
+                with_bk: bool = True, train: bool = False) -> dict:
+        res1 = self.pwcnet1(img1, img2, with_bk=with_bk, train=train)
+        res2 = self.pwcnet2(img1, img2, with_bk=with_bk, train=train)
+        return {key: [torch.cat([a[..., 0:2], b[..., 0:2], a[..., 2:4],
+                                 b[..., 2:4]], dim=-1)
+                      for a, b in zip(res1[key], res2[key])]
+                for key in res1}

@@ -1,9 +1,11 @@
 """Weights into the port: JAX parameter trees and reference checkpoints.
 
-``uflow_state_dict_from_jax`` is the port's own copy of
-``arflow_tpu/models/torch_export.py:export_uflow``: it turns the JAX
-``PWCFlow`` parameter tree (a nested dict of arrays, handed over as numpy)
-into this package's ``state_dict``:
+``uflow_state_dict_from_jax``, ``uflow_prob_state_dict_from_jax`` and
+``component_state_dict_from_jax`` are the port's own copies of
+``arflow_tpu/models/torch_export.py:export_uflow``, ``export_uflow_prob``
+and ``export_component_net`` (without the ``MixtureWeightsNet`` ResNet,
+which is not ported yet): they turn a JAX parameter tree (a nested dict of
+arrays, handed over as numpy) into this package's ``state_dict``:
 
 - conv kernels HWIO -> OIHW;
 - deconv kernels, stored pre-flipped in the JAX package: un-flip, then
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from arflow_tpu_torch.device import resolve_device
+from arflow_tpu_torch.models.uflow_prob import ELBO_TRAINING
 
 
 def _np(a) -> np.ndarray:
@@ -54,18 +57,23 @@ def _indices(params, prefix, suffix=""):
     return sorted(out)
 
 
-def uflow_state_dict_from_jax(params) -> dict:
-    """JAX ``PWCFlow`` params -> this package's ``PWCFlow`` state_dict
-    (float32 CPU tensors). Accepts the bare params or ``{'params': ...}``."""
-    if "params" in params and "feature_pyramid" not in params:
-        params = params["params"]
-    sd = {}
-    pyr = params["feature_pyramid"]
+def _params(variables) -> dict:
+    """The parameter tree of bare params, ``{'params'}`` or ``{'params',
+    'batch_stats'}``."""
+    return variables["params"] if "params" in variables else variables
+
+
+def _pyramid_from_jax(sd, pyr, prefix):
     pairs = sorted(tuple(int(v) for v in k[len("conv_l"):].split("_"))
                    for k in pyr if k.startswith("conv_l"))
     for lvl, i in pairs:
-        _put(sd, f"_feature_pyramid_extractor._convs.{lvl}.{i}",
-             pyr[f"conv_l{lvl}_{i}"], conv_kernel_from_jax)
+        _put(sd, f"{prefix}._convs.{lvl}.{i}", pyr[f"conv_l{lvl}_{i}"],
+             conv_kernel_from_jax)
+
+
+def _decoder_from_jax(sd, params):
+    """Flow decoders, context deconvs and refinement, shared by PWCFlow and
+    PWCProbFlow."""
     levels = _indices(params, "flow_l", "_out")
     for level in levels:
         convs = _indices(params, f"flow_l{level}_c")
@@ -88,7 +96,54 @@ def uflow_state_dict_from_jax(params) -> dict:
              conv_kernel_from_jax)
     _put(sd, f"_refine_model.{2 * len(refine)}", params["refine_out"],
          conv_kernel_from_jax)
+
+
+def _tensors(sd) -> dict:
     return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def uflow_state_dict_from_jax(params) -> dict:
+    """JAX ``PWCFlow`` params -> this package's ``PWCFlow`` state_dict
+    (float32 CPU tensors). Accepts the bare params or ``{'params': ...}``."""
+    params = _params(params)
+    sd = {}
+    _pyramid_from_jax(sd, params["feature_pyramid"], "_feature_pyramid_extractor")
+    _decoder_from_jax(sd, params)
+    return _tensors(sd)
+
+
+def _refuse_mixture_weights(params):
+    if "mixture_weights_net" in params:
+        raise NotImplementedError(
+            f"MixtureWeightsNet weights are not ported yet: {ELBO_TRAINING}")
+
+
+def _prob_state_dict(params) -> dict:
+    _refuse_mixture_weights(params)
+    sd = {}
+    k = 0
+    while f"feature_pyramid_{k}" in params:
+        _pyramid_from_jax(sd, params[f"feature_pyramid_{k}"],
+                          f"_feature_pyramid_extractor.{k}")
+        k += 1
+    _decoder_from_jax(sd, params)
+    return sd
+
+
+def uflow_prob_state_dict_from_jax(variables) -> dict:
+    """JAX ``PWCProbFlow`` variables -> this package's ``PWCProbFlow``
+    state_dict: pyramid k under ``_feature_pyramid_extractor.{k}``, the
+    decoder as ``PWCFlow``'s."""
+    return _tensors(_prob_state_dict(_params(variables)))
+
+
+def component_state_dict_from_jax(variables) -> dict:
+    """JAX ``ComponentNet`` variables -> this package's ``ComponentNet``
+    state_dict: each net's keys under ``pwcnet1.`` / ``pwcnet2.``."""
+    params = _params(variables)
+    _refuse_mixture_weights(params)
+    return _tensors({f"{net}.{key}": v for net in ("pwcnet1", "pwcnet2")
+                     for key, v in _prob_state_dict(params[net]).items()})
 
 
 def load_pretrained(path: str, model_cfg, device="cuda"):
@@ -105,10 +160,10 @@ def load_pretrained(path: str, model_cfg, device="cuda"):
         raise ValueError(
             f"{path}: not a .pth(.tar) checkpoint; convert a JAX checkpoint "
             "with arflow-to-torch first")
+    model = get_model(model_cfg, device="cpu")
     # {'epoch', 'state_dict'} as the reference saves it, or a bare state_dict
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
     sd = {k: v for k, v in sd.items() if k != "epoch"}
-    model = get_model(model_cfg, device="cpu")
     model.load_state_dict(sd, strict=True)
     return model.to(dev)

@@ -1,0 +1,137 @@
+"""Banded triangular solves over the image lattice (port of the inference
+part of ``arflow_tpu/ops/triag.py``).
+
+The lower-triangular matrix L couples each pixel to its left (B), upper (C)
+and upper-left (D) neighbours, besides itself (A). Tensors are NHWC with
+reduced band extents: A (B,M,N,C), B (B,M,N-1,C), C (B,M-1,N,C),
+D (B,M-1,N-1,C).
+
+The solve runs as a wavefront over the M+N-1 anti-diagonals: diagonal d
+needs only diagonals d-1 and d-2. Every band is first skewed to
+diagonal-major layout (one pad and reshape), so that each step works on
+whole (..., M) slices. The JAX package writes this as a ``lax.scan`` in
+XLA, not Pallas, so here it is plain PyTorch, one Python step per
+diagonal.
+
+Values only: the analytic adjoints, the banded products, the
+natural-gradient identities and ``inverse_l1norm`` come with ELBO training.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _skew(x: torch.Tensor, num_diags: int) -> torch.Tensor:
+    """Diagonal-major reindex: out[..., i, d] = x[..., i, d - i] (else 0).
+
+    x: (..., R, Cc) -> (..., R, num_diags), num_diags >= R + Cc - 1. Row i
+    of the padded (R, Cc + R) buffer read with a stride of Cc + R - 1 is
+    shifted right by i; what leaves [0, Cc) lands in the zero padding.
+    """
+    *lead, r, cc = x.shape
+    flat = F.pad(x, (0, r)).reshape(*lead, r * (cc + r))
+    skewed = flat[..., :r * (cc + r - 1)].reshape(*lead, r, cc + r - 1)
+    return F.pad(skewed, (0, num_diags - (cc + r - 1)))
+
+
+def _unskew(t: torch.Tensor, r: int, cc: int) -> torch.Tensor:
+    """Inverse of ``_skew``: out[..., i, j] = t[..., i, j + i]."""
+    *lead, _, nd = t.shape
+    flat = F.pad(t.reshape(*lead, r * nd), (0, r))
+    return flat.reshape(*lead, r, nd + 1)[..., :cc]
+
+
+def _skewed_bands(a, b, c, d):
+    """(..., M, N)-layout bands -> diagonal-major (..., M, M+N-1), aligned
+    so that [..., dd] holds what diagonal dd needs: B one diagonal later,
+    C and D one row lower and one and two diagonals later. A is 1 outside
+    the lattice, so that those lanes divide by 1."""
+    *lead, m, n = a.shape
+    nd = m + n - 1
+    a_sk = _skew(a, nd) + (1.0 - _skew(torch.ones_like(a), nd))
+    b_sk = _skew(b, nd - 1) if n > 1 else a.new_zeros((*lead, m, nd - 1))
+    c_sk = _skew(c, nd - 1) if m > 1 else a.new_zeros((*lead, 0, nd - 1))
+    if m > 1 and n > 1:
+        d_sk = _skew(d, nd - 2)
+    else:
+        d_sk = a.new_zeros((*lead, max(m - 1, 0), nd - 2))
+    return (a_sk, F.pad(b_sk, (1, 0)), F.pad(c_sk, (1, 0, 1, 0)),
+            F.pad(d_sk, (2, 0, 1, 0)))
+
+
+def _shift_rows(v: torch.Tensor) -> torch.Tensor:
+    """v[..., i] -> v[..., i - 1], zero in row 0."""
+    return F.pad(v[..., :-1], (1, 0))
+
+
+def _wavefront(bands, rhs):
+    """Yield the diagonals of y with L y = x, from the skewed ``bands`` and
+    ``rhs(dd)``, x's diagonal dd; shapes broadcast."""
+    a_sk, b_sk, c_sk, d_sk = bands
+    prev1 = prev2 = None
+    for dd in range(a_sk.shape[-1]):
+        x_d = rhs(dd)
+        if prev1 is None:
+            shape = torch.broadcast_shapes(x_d.shape, a_sk.shape[:-1])
+            prev1 = prev2 = x_d.new_zeros(shape)
+        cur = (x_d
+               - b_sk[..., dd] * prev1
+               - c_sk[..., dd] * _shift_rows(prev1)
+               - d_sk[..., dd] * _shift_rows(prev2)) / a_sk[..., dd]
+        yield cur
+        prev1, prev2 = cur, prev1
+
+
+def _to_bcmn(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def forward_substitution(a, b, c, d, x):
+    """Solve L y = x (lower-triangular, banded), NHWC."""
+    a, b, c, d, x = (_to_bcmn(t) for t in (a, b, c, d, x))
+    m, n = x.shape[-2:]
+    x_sk = _skew(x, m + n - 1)
+    diags = list(_wavefront(_skewed_bands(a, b, c, d), lambda dd: x_sk[..., dd]))
+    return _unskew(torch.stack(diags, dim=-1), m, n).permute(0, 2, 3, 1)
+
+
+def backward_substitution(a, b, c, d, x):
+    """Solve L^T y = x (upper-triangular: B couples the right neighbour, C
+    the one below), NHWC: the lower solve on the lattice flipped along both
+    axes."""
+    flip = lambda t: t.flip(1, 2)  # noqa: E731
+    return flip(forward_substitution(*(flip(t) for t in (a, b, c, d, x))))
+
+
+def inverse_diagonal(a, b, c, d=None, chunk: int = 1 << 15):
+    """diag((L L^T)^-1) per pixel, NHWC: the marginal variances of
+    N(0, (L L^T)^-1). For each pixel p it solves L y = e_p and sums y**2.
+
+    The unit vectors ride a batch axis of their own, ``chunk`` pixels at a
+    time, with the bands broadcast over it; each is made one diagonal at a
+    time, and only the running sum of y**2 is kept. The result does not
+    depend on ``chunk``, only the memory does: about 10 tensors of
+    B x chunk x C x M elements.
+    """
+    bsz, m, n, ch = a.shape
+    if d is None:
+        d = a.new_zeros((bsz, max(m - 1, 0), max(n - 1, 0), ch))
+    bands = [t.unsqueeze(1) for t in
+             _skewed_bands(*(_to_bcmn(t) for t in (a, b, c, d)))]
+    rows = torch.arange(m, device=a.device)
+    sums = []
+    for start in range(0, m * n, chunk):
+        p = torch.arange(start, min(start + chunk, m * n), device=a.device)
+        row_of = (rows == (p // n)[:, None]).to(a.dtype)  # (K, M)
+        diag_of = p // n + p % n
+
+        def unit(dd):
+            return (row_of * (diag_of == dd).to(a.dtype)[:, None])[None, :, None]
+
+        ss = 0.0
+        for y_d in _wavefront(bands, unit):
+            ss = ss + (y_d * y_d).sum(dim=-1)
+        sums.append(ss)  # (B, K, C)
+    return torch.cat(sums, dim=1).reshape(bsz, m, n, ch)

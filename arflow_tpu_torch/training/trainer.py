@@ -38,7 +38,6 @@ from arflow_tpu_torch.utils.summary import SummaryWriter
 _NOT_PORTED = {
     "remat": "queue 1, 'config switches' (train.remat)",
     "nan_revert": "queue 1, 'config switches' (train.nan_revert)",
-    "valid_masks": "queue 1, 'main-path entry points' (KITTI metrics)",
 }
 
 

@@ -71,7 +71,9 @@ class UFlowTrainer(BaseTrainer):
 
     @torch.no_grad()
     def _validate_with_gt(self):
-        """Mean EPE of ``flows_fw[0]`` on each validation loader."""
+        """Mean EPE of ``flows_fw[0]`` on each validation loader; with
+        ``valid_masks`` (KITTI's 4-channel ground truth) also E_noc, E_occ
+        and F1_all."""
         loaders = self.valid_loader
         if not isinstance(loaders, list):
             loaders = [loaders]
@@ -80,12 +82,13 @@ class UFlowTrainer(BaseTrainer):
         all_error_names = []
         for i_set, loader in enumerate(loaders):
             error_names = ["EPE"]
+            if self.cfg.get("valid_masks"):
+                error_names += ["E_noc", "E_occ", "F1_all"]
             error_meters = AverageMeter(i=len(error_names))
             for i_step, data in enumerate(loader):
                 img1, img2 = (self._to_device(data[k]) for k in ("img1", "img2"))
-                gt = self._to_device(data["target"]["flow"])
                 pred = self.model(img1, img2, with_bk=False)["flows_fw"][0]
-                es = evaluate_flow(gt, pred)
+                es = evaluate_flow(data["target"]["flow"], pred)
                 error_meters.update(es, img1.shape[0])
                 if i_step % self.cfg.print_freq == 0 or i_step == len(loader) - 1:
                     self._log.info(

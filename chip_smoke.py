@@ -11,8 +11,11 @@ streaming engine, training steps of that model and its ``UFlowLoss``
 through ``UFlowTrainer``, and the entry points a user calls: ``train_main``
 on a FlyingChairs-format directory (written here from a seed) with its
 data pipeline, checkpoints and a resume, and ``inference_main`` writing
-``.flo`` files. It checks the outputs, and times the kernels, the forward,
-the stream, the train step and the entry points. Each phase prints
+``.flo`` files; and the probabilistic UFlow path at Sintel's size: five
+model setups of shipped configs with their entropy maps, the batch rate,
+the stream with entropy, and ``inference_main`` plus ``evaluate_flo_cli``
+on a Sintel-format tree. It checks the outputs, and times the kernels, the
+forwards, the streams, the train step and the entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
 the card's name and power limit (``nvidia-smi``) and ends with one line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -23,17 +26,23 @@ Imports nothing of JAX or of ``arflow_tpu``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import cProfile
+import importlib
 import json
 import logging
 import os
+import pstats
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -42,13 +51,14 @@ import torch
 import torch.nn.functional as F
 
 from arflow_tpu_torch import load_config
-from arflow_tpu_torch.cli import inference_main, train_main
+from arflow_tpu_torch.cli import evaluate_flo_cli, inference_main, train_main
 from arflow_tpu_torch.data import Chairs, ConcatDataset
 from arflow_tpu_torch.data.loader import DataLoader
 from arflow_tpu_torch.losses import get_loss
 from arflow_tpu_torch.losses import uflow as uflow_loss_module
 from arflow_tpu_torch.models import get_model, load_pretrained
 from arflow_tpu_torch.models import uflow as uflow_module
+from arflow_tpu_torch.models import uflow_prob as uflow_prob_module
 from arflow_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 from arflow_tpu_torch.ops.cuda.build import build, build_log
 from arflow_tpu_torch.ops.cuda.cost_volume import (
@@ -61,9 +71,11 @@ from arflow_tpu_torch.ops.cuda.cost_volume import (
     cost_volume_grad_reference,
     cost_volume_kernel,
 )
+from arflow_tpu_torch.ops.triag import inverse_diagonal
 from arflow_tpu_torch.serving import StreamingFlowEngine
 from arflow_tpu_torch.training import get_trainer
 from arflow_tpu_torch.training.checkpoint import load_checkpoint
+from arflow_tpu_torch.training.entropy import extract_uv_entropy
 from arflow_tpu_torch.training.trainer import BaseTrainer
 from arflow_tpu_torch.training.uflow_trainer import UFlowTrainer
 from arflow_tpu_torch.utils.flow_io import read_flo, write_flo
@@ -339,19 +351,9 @@ def randn_at(shape, offset, gen, dev):
     return torch.randn(n + offset, generator=gen, device=dev)[offset:].view(shape)
 
 
-def phase_kernels(dev, smi):
-    """The forward kernel against its plain version, then timed, at the
-    shapes the main paths give it: the four UFlow levels at 384x640, batch
-    8 (2-frame inference) and batch 1 (one streamed flow), and at 256x448,
-    batch 8 (training; W = 112 ... 14, where 14 takes the 4-byte copies);
-    and checked at the levels of the cli phase's 384x512 b8 and at the
-    ragged shapes."""
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    levels = {"b8": level_shapes(B), "b1": level_shapes(1),
-              "train": level_shapes(TB, TH, TW)}
-    checks = ([(shape, MD, 0) for shapes in levels.values() for shape in shapes]
-              + [(shape, MD, 0) for shape in level_shapes(TB, CH, CW)]
-              + RAGGED)
+def check_forward(checks, gen, dev) -> float:
+    """The forward kernel against its plain version at each (shape, md,
+    offset) of ``checks``; the largest error."""
     max_err = 0.0
     for shape, md, offset in checks:
         f1 = randn_at(shape, offset, gen, dev)
@@ -366,7 +368,12 @@ def phase_kernels(dev, smi):
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"cost_volume {shape} md={md}: err {err} > {KERNEL_ATOL}")
         max_err = max(max_err, err)
+    return max_err
 
+
+def time_forward(levels, gen, dev, smi) -> dict:
+    """``kernel_time`` rows of the forward kernel at each cell's level
+    shapes: graph-timed and eager kernel, plain version, bound."""
     per_level = {key: [] for key in levels}
     for key, shapes in levels.items():
         for level, shape in zip((1, 2, 3, 4), shapes):
@@ -385,7 +392,23 @@ def phase_kernels(dev, smi):
             per_level[key].append(row)
             emit({"phase": "kernel_time", "kernel": "cost_volume", "cell": key,
                   **row, "card": smi})
-    return max_err, per_level
+    return per_level
+
+
+def phase_kernels(dev, smi):
+    """The forward kernel against its plain version, then timed, at the
+    shapes the main paths give it: the four UFlow levels at 384x640, batch
+    8 (2-frame inference) and batch 1 (one streamed flow), and at 256x448,
+    batch 8 (training; W = 112 ... 14, where 14 takes the 4-byte copies);
+    and checked at the levels of the cli phase's 384x512 b8 and at the
+    ragged shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    levels = {"b8": level_shapes(B), "b1": level_shapes(1),
+              "train": level_shapes(TB, TH, TW)}
+    checks = ([(shape, MD, 0) for shapes in levels.values() for shape in shapes]
+              + [(shape, MD, 0) for shape in level_shapes(TB, CH, CW)]
+              + RAGGED)
+    return check_forward(checks, gen, dev), time_forward(levels, gen, dev, smi)
 
 
 def phase_grad_kernels(dev, smi):
@@ -790,6 +813,57 @@ def cli_config(root, save_root, epochs, resume=None):
     return cfg
 
 
+class PerSampleDraws:
+    """The augmentation's draws as a function of the sample, not of the
+    loader threads' order: a stand-in for the ``RandomState`` that
+    ``get_dataset`` shares among the transforms. With the shared one, which
+    sample gets which draws depends on the order in which the threads reach
+    it, and the short runs' losses swing with it (PERF.md). Here each
+    outermost ``ConcatDataset`` lookup seeds its thread's own
+    ``RandomState`` from (seed, index, the times that dataset has served the
+    index) and the transforms draw from it; outside a lookup they draw from
+    one ``RandomState(seed)``."""
+
+    def __init__(self, seed):
+        self.base_seed = seed
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._served = weakref.WeakKeyDictionary()
+        self._fallback = np.random.RandomState(seed)
+
+    def __getattr__(self, name):
+        rng = getattr(self._local, "rng", None)
+        return getattr(self._fallback if rng is None else rng, name)
+
+    @contextlib.contextmanager
+    def active(self):
+        draws = self
+        get_item = ConcatDataset.__getitem__
+        factory = importlib.import_module("arflow_tpu_torch.data.get_dataset")
+        geometric = factory.get_geometric_transforms
+        photometric = factory.get_photometric_transforms
+
+        def seeded_get_item(dataset, idx):
+            if getattr(draws._local, "rng", None) is not None:  # nested
+                return get_item(dataset, idx)
+            with draws._lock:
+                served = draws._served.setdefault(dataset, collections.Counter())
+                n = served[int(idx)]
+                served[int(idx)] += 1
+            draws._local.rng = np.random.RandomState([draws.base_seed, int(idx), n])
+            try:
+                return get_item(dataset, idx)
+            finally:
+                draws._local.rng = None
+
+        with mock.patch.object(ConcatDataset, "__getitem__", seeded_get_item), \
+                mock.patch.object(factory, "get_geometric_transforms",
+                                  lambda cfg, rng=None: geometric(cfg, draws)), \
+                mock.patch.object(factory, "get_photometric_transforms",
+                                  lambda cfg, rng=None: photometric(cfg, draws)):
+            yield
+
+
 class EntryPointProbe:
     """While active: each train step's iteration, metric row and the
     trainer's own data and batch laps (``am_data_time``, ``am_batch_time``);
@@ -906,10 +980,12 @@ def phase_cli(dev, smi):
     FlyingChairs-format directory written here: ``train_main`` with
     chairs_uflow.json (its data pipeline, augmentation, validation and
     checkpoints), a resume of a checkpoint, and ``inference_main`` writing
-    ``.flo`` files."""
+    ``.flo`` files. The augmentation draws per sample (``PerSampleDraws``),
+    so that the convergence check sees the same data in every run."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        return run_cli_phase(tmp, dev, smi)
+        with PerSampleDraws(SEED).active():
+            return run_cli_phase(tmp, dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1145,6 +1221,423 @@ def run_cli_phase(tmp, dev, smi):
     return launches, inf_launches
 
 
+# The probabilistic UFlow path at the shape sintel_uflow_elbo_inference.json
+# gives the model (test_shape 448x1024), and Sintel's own 436x1024 frames.
+PH, PW = 448, 1024
+PB = 8  # the batch of the timing cell
+SH, SW = 436, 1024
+# Each model setup of a shipped config: (key, config, model overrides).
+# (e) runs two pyramids without its mixture weights net (not ported yet).
+PROB_SETUPS = [
+    ("a", "sintel_uflow_elbo_inference.json", {}),
+    ("b", "chairs_uflow_elbo_nondiag.json", {}),
+    ("c", "chairs_uflow_elbo_nondiag_inv.json", {}),
+    ("d", "chairs_uflow_elbo_lowrank.json", {}),
+    ("e", "chairs_uflow_elbo_mixture.json", {"mixture_weights": False}),
+]
+# Random weights give (c) a factor L whose inverse overflows float32 (NaN
+# entropy at any size): its log-diagonal reaches -2.8 where the couplings
+# reach 0.8. A trained precision factor is diagonally dominant, so (c) adds
+# this to the refinement's log-diagonal bias: exp(log-diagonal) then stays
+# above about 3.3, several times the couplings.
+INV_COV_LOG_DIAG_SHIFT = 4.0
+# Entropy maps with the kernels against the plain cost volume, relative to
+# the largest |entropy| (at least 1): measured at most 1.9e-6 (setup c,
+# 6.7e-6 on 3.5; PERF.md), so the flows' bound holds with a margin of 50.
+ENTROPY_RTOL = 1e-4
+
+
+def prob_config(name, overrides):
+    cfg = load_config(os.path.join(REPO, "configs", name))
+    cfg.model.update(overrides)
+    return cfg
+
+
+def plain_prob_cost_volume():
+    """The plain cost volume swapped into the probabilistic model."""
+    return mock.patch.object(uflow_prob_module, "compute_cost_volume",
+                             compute_cost_volume_reference)
+
+
+def prob_model(cfg, dev):
+    """The config's model from seed 0; (c)'s log-diagonal shifted (above)."""
+    model = get_model(cfg.model, device=dev, seed=SEED)
+    if cfg.model.get("inv_cov"):
+        l_ch, m_ch, _ = model.out_channels
+        with torch.no_grad():
+            model._refine_model[-1].bias[l_ch:l_ch + m_ch] += INV_COV_LOG_DIAG_SHIFT
+    return model
+
+
+def seeded(dev):
+    return torch.Generator(device=dev).manual_seed(SEED)
+
+
+def entropy_of(res, loss_cfg, dev):
+    return extract_uv_entropy(res["flows_fw"], loss_cfg, res, generator=seeded(dev))
+
+
+def phase_prob_kernels(dev, smi):
+    """The forward kernel against its plain version, then timed, at the
+    level shapes of 448x1024, batch 1 (one pyramid), batch 2 (two
+    pyramids' components in one decoder pass) and batch 8 (the timing
+    cell)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    levels = {"prob_b1": level_shapes(1, PH, PW), "prob_b2": level_shapes(2, PH, PW),
+              "prob_b8": level_shapes(PB, PH, PW)}
+    checks = [(shape, MD, 0) for shapes in levels.values() for shape in shapes]
+    return check_forward(checks, gen, dev), time_forward(levels, gen, dev, smi)
+
+
+def phase_prob_inference(dev, smi):
+    """Each model setup at 448x1024 b1: outputs and entropy with the
+    kernels against the plain cost volume, launches, device times."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    img1, img2 = shifted_pair(1, PH, PW, 2, 3, gen, dev)
+    launches = {}
+    for key, name, overrides in PROB_SETUPS:
+        cfg = prob_config(name, overrides)
+        model = prob_model(cfg, dev)
+        l_ch, m_ch, n_ch = model.out_channels
+        k = model.n_pyramids
+        with torch.inference_mode():
+            reset_launch_counts()
+            res = model(img1, img2, with_bk=False)
+            ent = entropy_of(res, cfg.loss, dev)
+            torch.cuda.synchronize()
+            launches[key] = COST_VOLUME.launches
+            flows = res["flows_fw"]
+            want = [(1, PH // 2 ** i, PW // 2 ** i,
+                     k * (l_ch + m_ch + (n_ch if i < 3 else 0))) for i in range(6)]
+            if [tuple(f.shape) for f in flows] != want:
+                raise AssertionError(f"({key}) shapes {[f.shape for f in flows]}")
+            if tuple(ent.shape) != (1, PH, PW, 2):
+                raise AssertionError(f"({key}) entropy shape {ent.shape}")
+            with plain_prob_cost_volume():
+                ref = model(img1, img2, with_bk=False)
+                ent_ref = entropy_of(ref, cfg.loss, dev)
+            torch.cuda.synchronize()
+            if COST_VOLUME.launches != launches[key]:
+                raise AssertionError(f"({key}) the plain run launched the kernel")
+            mean, mean_ref = flows[0][..., :k * l_ch], ref["flows_fw"][0][..., :k * l_ch]
+            scale = float(mean_ref.abs().max())
+            err = max_abs(mean, mean_ref)
+            tol = FLOW_RTOL * max(scale, 1.0)
+            ent_scale = float(ent_ref.abs().max())
+            ent_err = max_abs(ent, ent_ref)
+            ent_tol = ENTROPY_RTOL * max(ent_scale, 1.0)
+            finite = all(bool(torch.isfinite(t).all()) for t in (*flows, ent))
+            fwd_ms = cuda_ms(lambda: model(img1, img2, with_bk=False), iters=10)
+            fwd = profile_window(lambda: model(img1, img2, with_bk=False), 3, fwd_ms)
+            ent_ms = cuda_ms(lambda: entropy_of(res, cfg.loss, dev), iters=3,
+                             warmup=1)
+            row = {"phase": "prob_inference", "setup": key, "config": name,
+                   "model_overrides": overrides, "shape": [1, PH, PW],
+                   "out_channels": list(model.out_channels), "n_pyramids": k,
+                   "approx": cfg.loss.approx, "launches": launches[key],
+                   "max_abs_flow": scale, "flow_vs_plain_max_abs_err": err,
+                   "atol": tol, "max_abs_entropy": ent_scale,
+                   "entropy_range": [float(ent_ref.min()), float(ent_ref.max())],
+                   "entropy_vs_plain_max_abs_err": ent_err, "entropy_atol": ent_tol,
+                   "finite": finite, "forward_event_ms": fwd_ms,
+                   "forward_device_ms": fwd["device_ms_per_call"],
+                   "forward_busy_share": fwd["busy_share"],
+                   "forward_conv_ms": fwd["conv_ms_per_call"],
+                   "forward_top_kernels": fwd["top_kernels"][:3],
+                   "entropy_event_ms": ent_ms}
+            if cfg.model.get("inv_cov"):
+                f2 = res["flows_fw"][2]
+                args = (torch.exp(f2[..., 2:4]), f2[..., 4:6][:, :, :-1],
+                        f2[..., 6:8][:, :-1])
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                inverse_diagonal(*args)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                inv_ms = cuda_ms(lambda: inverse_diagonal(*args), iters=3, warmup=1)
+                inv = profile_window(lambda: inverse_diagonal(*args), 1, inv_ms)
+                row.update(inverse_diagonal_shape=list(args[0].shape),
+                           inverse_diagonal_first_s=first_s,
+                           inverse_diagonal_event_ms=inv_ms,
+                           inverse_diagonal_device_ms=inv["device_ms_per_call"],
+                           inverse_diagonal_busy_share=inv["busy_share"],
+                           inverse_diagonal_top_kernels=inv["top_kernels"][:4],
+                           inverse_diagonal_peak_gb=peak / 1e9)
+            emit({**row, "card": smi})
+        if launches[key] != 4:
+            raise AssertionError(f"({key}) cost_volume launched {launches[key]} "
+                                 "times, not 4")
+        if not (finite and err <= tol and ent_err <= ent_tol):
+            raise AssertionError(f"({key}) vs plain: flow {err} > {tol}, entropy "
+                                 f"{ent_err} > {ent_tol}, or non-finite")
+        del model, res, ref
+    return launches
+
+
+def phase_prob_inference_time(dev, smi):
+    """Setup (a) at 448x1024 b8 with its entropy map: the flow and entropy
+    against the same model with the plain cost volume, maps/s and a
+    profile."""
+    cfg = prob_config(*PROB_SETUPS[0][1:])
+    model = prob_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    img1, img2 = shifted_pair(PB, PH, PW, 2, 3, gen, dev)
+
+    def forward():
+        res = model(img1, img2, with_bk=False)
+        return res["flows_fw"][0][..., :2], entropy_of(res, cfg.loss, dev)
+
+    with torch.inference_mode():
+        reset_launch_counts()
+        flow, ent = forward()
+        torch.cuda.synchronize()
+        launches = COST_VOLUME.launches
+        with plain_prob_cost_volume():
+            flow_ref, ent_ref = forward()
+        torch.cuda.synchronize()
+        if COST_VOLUME.launches != launches:
+            raise AssertionError("b8: the plain run launched the kernel")
+        err, ent_err = max_abs(flow, flow_ref), max_abs(ent, ent_ref)
+        tol = FLOW_RTOL * max(float(flow_ref.abs().max()), 1.0)
+        ent_tol = ENTROPY_RTOL * max(float(ent_ref.abs().max()), 1.0)
+        finite = bool(torch.isfinite(flow).all()) and bool(torch.isfinite(ent).all())
+        del flow_ref, ent_ref
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(forward, iters=20)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        emit({"phase": "prob_inference_time", "setup": "a",
+              "shape": [PB, PH, PW], "dtype": "float32", "launches": launches,
+              "flow_vs_plain_max_abs_err": err, "atol": tol,
+              "entropy_vs_plain_max_abs_err": ent_err, "entropy_atol": ent_tol,
+              "finite": finite,
+              "ms_per_batch": ms, "maps_per_s": PB / (ms / 1e3),
+              "peak_memory_gb": peak, "card": smi})
+        emit({"phase": "prob_inference_profile", "setup": "a",
+              "shape": [PB, PH, PW], **profile_window(forward, 3, ms),
+              "card": smi})
+    if launches != 4 or not (finite and err <= tol and ent_err <= ent_tol):
+        raise AssertionError(f"b8: {launches} launches, flow {err} > {tol}, "
+                             f"entropy {ent_err} > {ent_tol}, or non-finite")
+    return launches
+
+
+def phase_prob_serving(dev, smi):
+    """StreamingFlowEngine on setup (a) with its loss section, 448x1024 b1:
+    one pyramid per frame, flows and entropy equal to the monolithic
+    forward's, flows/s and the device time per flow."""
+    cfg = prob_config(*PROB_SETUPS[0][1:])
+    model = prob_model(cfg, dev)
+    state = model.state_dict()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    m = 4 * STREAM_FRAMES
+    tex = texture(1, PH + m, PW + m, gen, dev)
+    seq = [tex[:, :, 2 * t:2 * t + PH, 3 * t:3 * t + PW].permute(0, 2, 3, 1).contiguous()
+           for t in range(STREAM_FRAMES)]
+    counts = {}
+    for with_bw in (False, True):
+        engine = StreamingFlowEngine(cfg.model, state, with_bw=with_bw,
+                                     device=dev, loss_cfg=cfg.loss)
+        reset_launch_counts()
+        outs = [engine.push(f) for f in seq]
+        torch.cuda.synchronize()
+        counts[with_bw] = COST_VOLUME.launches
+        flows = [o for o in outs if o is not None]
+        if outs[0] is not None or len(flows) != STREAM_FRAMES - 1:
+            raise AssertionError("prob streaming: wrong number of outputs")
+        if engine.pyramids_computed != STREAM_FRAMES:
+            raise AssertionError(f"{engine.pyramids_computed} pyramids computed")
+        want = 4 * (STREAM_FRAMES - 1) * (2 if with_bw else 1)
+        if counts[with_bw] != want:
+            raise AssertionError(f"prob streaming launched {counts[with_bw]}, "
+                                 f"not {want}")
+        err = ent_err = 0.0
+        scale = ent_scale = 1.0
+        with torch.inference_mode():
+            for t, out in enumerate(flows):
+                mono = model(seq[t], seq[t + 1], with_bk=with_bw)
+                pairs = [(out["flow"], mono["flows_fw"][0][..., :2])]
+                if with_bw:
+                    pairs.append((out["flow_bw"], mono["flows_bw"][0][..., :2]))
+                for a, b in pairs:
+                    err = max(err, max_abs(a, b))
+                    scale = max(scale, float(b.abs().max()))
+                ent = entropy_of(mono, cfg.loss, dev)
+                ent_err = max(ent_err, max_abs(out["entropy"], ent))
+                ent_scale = max(ent_scale, float(ent.abs().max()))
+        tol, ent_tol = FLOW_RTOL * scale, FLOW_RTOL * ent_scale
+        emit({"phase": "prob_serving", "with_bw": with_bw,
+              "frames": STREAM_FRAMES, "flows": len(flows),
+              "pyramids": engine.pyramids_computed, "launches": counts[with_bw],
+              "vs_monolithic_max_abs_err": err, "atol": tol,
+              "entropy_vs_monolithic_max_abs_err": ent_err,
+              "entropy_atol": ent_tol})
+        if not all(bool(torch.isfinite(o["flow"]).all())
+                   and bool(torch.isfinite(o["entropy"]).all()) for o in flows):
+            raise AssertionError("non-finite prob streaming output")
+        if not (err <= tol and ent_err <= ent_tol):
+            raise AssertionError(f"prob streaming vs monolithic: {err} > {tol} "
+                                 f"or entropy {ent_err} > {ent_tol}")
+
+    engine = StreamingFlowEngine(cfg.model, state, device=dev, loss_cfg=cfg.loss)
+    for f in seq[:3]:  # warm-up
+        engine.push(f)
+    torch.cuda.synchronize()
+    rounds = 5
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for f in seq:
+            engine.push(f)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = rounds * STREAM_FRAMES
+    emit({"phase": "prob_serving_time", "shape": [1, PH, PW], "flows": n,
+          "seconds": dt, "flows_per_s": n / dt, "card": smi})
+    frames = iter(seq * 2)
+    emit({"phase": "prob_serving_profile", "shape": [1, PH, PW],
+          **profile_window(lambda: engine.push(next(frames)), STREAM_FRAMES,
+                           1e3 * dt / n),
+          "card": smi})
+    return counts
+
+
+SINTEL_SCENES = (("scene_a", (1, 2)), ("scene_b", (-2, 3)))  # (dy, dx) per frame
+
+
+def write_sintel_tree(root, gt_root, dev) -> int:
+    """Sintel's test layout, ``test/{clean,final}/<scene>/frame_000{1..4}
+    .png`` at 436x1024 through PIL: per scene a seeded texture moved by a
+    whole (dy, dx) per frame (final: the clean frames darkened by 10%); and
+    under ``gt_root`` the flow (u, v) = (dx, dy) of each pair as ``.flo`` at
+    the prediction's relative path. Returns the bytes of the images."""
+    from PIL import Image
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    nbytes = 0
+    for scene, (dy, dx) in SINTEL_SCENES:
+        m = 16
+        tex = texture(1, SH + 2 * m, SW + 2 * m, gen, dev)
+        for t in range(4):
+            img = tex[0, :, m - t * dy:m - t * dy + SH, m - t * dx:m - t * dx + SW]
+            px = (img.permute(1, 2, 0) * 255).round().to(torch.uint8).cpu().numpy()
+            for kind, pixels in (("clean", px), ("final", (px * 0.9).astype(np.uint8))):
+                d = os.path.join(root, "test", kind, scene)
+                os.makedirs(d, exist_ok=True)
+                path = os.path.join(d, f"frame_{t + 1:04d}.png")
+                Image.fromarray(pixels).save(path)
+                nbytes += os.path.getsize(path)
+                if t < 3:
+                    g = os.path.join(gt_root, "test", kind, scene)
+                    os.makedirs(g, exist_ok=True)
+                    write_flo(os.path.join(g, f"frame_{t + 1:04d}.flo"),
+                              np.tile(np.float32([dx, dy]), (SH, SW, 1)))
+    return nbytes
+
+
+def top_functions(profiler, n) -> list:
+    """The ``n`` functions of a cProfile run with the most time of their
+    own: [file:line(name), calls, own s, cumulative s]."""
+    stats = pstats.Stats(profiler).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return [[f"{os.path.basename(f)}:{line}({name})", nc, tt, ct]
+            for (f, line, name), (_, nc, tt, ct, _) in rows]
+
+
+def phase_prob_cli(dev, smi):
+    """The user's path: ``inference_main`` with
+    sintel_uflow_elbo_inference.json on a Sintel-format tree written here,
+    then ``evaluate_flo_cli`` on what it wrote."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prob_cli_")
+    try:
+        return run_prob_cli_phase(tmp, dev, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_prob_cli_phase(tmp, dev, smi):
+    log = logging.getLogger("chip_smoke")
+    root, gt_root = os.path.join(tmp, "sintel"), os.path.join(tmp, "gt")
+    t0 = time.perf_counter()
+    nbytes = write_sintel_tree(root, gt_root, dev)
+    data_s = time.perf_counter() - t0
+    name = PROB_SETUPS[0][1]
+    ckpt = os.path.join(tmp, "seed0.pth.tar")
+    cfg = prob_config(name, {})
+    torch.save({"epoch": 0, "state_dict": get_model(cfg.model, device="cpu",
+                                                    seed=SEED).state_dict()}, ckpt)
+
+    def config(out_root):
+        cfg = prob_config(name, {})
+        for entry in cfg.data:
+            entry.update(root_sintel=root, out_root=out_root)
+        cfg.inference.pretrained_model = ckpt
+        return cfg
+
+    stamps = []
+
+    def write_and_stamp(path, flow):
+        write_flo(path, flow)
+        stamps.append(time.perf_counter())
+
+    out_root, plain_root = os.path.join(tmp, "out"), os.path.join(tmp, "plain")
+    reset_launch_counts()
+    t_inf = time.perf_counter()
+    with mock.patch("arflow_tpu_torch.utils.flow_io.write_flo", write_and_stamp):
+        written = inference_main(config(out_root), log, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_inf
+    launches = COST_VOLUME.launches
+    with plain_prob_cost_volume():
+        plain = inference_main(config(plain_root), log, device=dev)
+    if COST_VOLUME.launches != launches:
+        raise AssertionError("the plain inference_main launched the kernel")
+    errs, tols = {".flo": [], ".npy": []}, {".flo": [], ".npy": []}
+    for path, ref_path in zip(written, plain):
+        if os.path.relpath(path, out_root) != os.path.relpath(ref_path, plain_root):
+            raise AssertionError(f"{path} and {ref_path} differ")
+        for ext, read in ((".flo", read_flo), (".npy", np.load)):
+            got, want = read(path[:-4] + ext), read(ref_path[:-4] + ext)
+            if got.shape != (SH, SW, 2) or not np.isfinite(got).all():
+                raise AssertionError(f"{path[:-4] + ext}: {got.shape} or non-finite")
+            errs[ext].append(float(np.abs(got - want).max()))
+            tols[ext].append(FLOW_RTOL * max(float(np.abs(want).max()), 1.0))
+    # evaluate_flo_cli on the clean pass (6 of the 12 pairs; it is host
+    # numpy, held to the JAX package's by the CPU tests), under cProfile.
+    profiler = cProfile.Profile()
+    t0 = time.perf_counter()
+    metrics = profiler.runcall(evaluate_flo_cli, [
+        "--pred_root", os.path.join(out_root, "test", "clean"),
+        "--gt_root", os.path.join(gt_root, "test", "clean")])
+    eval_s = time.perf_counter() - t0
+    n_pairs = 2 * len(SINTEL_SCENES) * 3
+    n_eval = n_pairs // 2
+    emit({"phase": "prob_cli", "config": name, "pairs": len(written),
+          "shape": [SH, SW], "model_shape": [PH, PW], "image_bytes": nbytes,
+          "data_seconds": data_s, "launches": launches,
+          "flo_vs_plain_max_abs_err": max(errs[".flo"]),
+          "npy_vs_plain_max_abs_err": max(errs[".npy"]),
+          "atol_min": {k: min(v) for k, v in tols.items()},
+          "evaluate_flo": metrics, "evaluate_pairs": n_eval,
+          "evaluate_profile": top_functions(profiler, 6),
+          "wall_ms_per_pair": 1e3 * wall / max(len(written), 1),
+          "ms_first_pair_incl_load": 1e3 * (stamps[0] - t_inf) if stamps else None,
+          "ms_next_pairs": [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])],
+          "evaluate_ms_per_pair": 1e3 * eval_s / n_eval,
+          "card": smi})
+    if len(written) != n_pairs or len(plain) != n_pairs:
+        raise AssertionError(f"inference_main wrote {len(written)} .flo, not {n_pairs}")
+    if launches != 4 * n_pairs:
+        raise AssertionError(f"inference_main launched {launches}, not {4 * n_pairs}")
+    if not all(e <= t for ext in errs for e, t in zip(errs[ext], tols[ext])):
+        raise AssertionError(f"outputs vs the plain cost volume: {errs} > {tols}")
+    if not (metrics["files"] == n_eval
+            and np.isfinite([metrics["epe"], metrics["auc"], metrics["auc_diff"]]).all()):
+        raise AssertionError(f"evaluate_flo_cli: {metrics}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1160,6 +1653,14 @@ def main() -> int:
     model, launches = phase_inference(cfg, dev, smi)
     serving = phase_serving(cfg, model, dev, smi)
     del model
+    prob_err, prob_levels = phase_prob_kernels(dev, smi)
+    prob_launches = {f"inference_{k}": v
+                     for k, v in phase_prob_inference(dev, smi).items()}
+    prob_launches["inference_b8"] = phase_prob_inference_time(dev, smi)
+    prob_serving = phase_prob_serving(dev, smi)
+    prob_launches["serving"] = prob_serving[False]
+    prob_launches["serving_bw"] = prob_serving[True]
+    prob_launches["cli"] = phase_prob_cli(dev, smi)
     train_launches = phase_train(cfg, dev, smi)
     cli_launches, cli_inference_launches = phase_cli(dev, smi)
     emit({"kernels": [{
@@ -1168,7 +1669,7 @@ def main() -> int:
         "source": COST_VOLUME.source,
         "replaces": COST_VOLUME.replaces,
         "launches": launches["cost_volume"],
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, prob_err),
         # One 2-frame forward's worth at b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in per_level["b8"]),
         "plain_ms": sum(r["plain_ms"] for r in per_level["b8"]),
@@ -1188,6 +1689,13 @@ def main() -> int:
         # on 2 pairs, at 384x512 b8 (phase cli).
         "launches_cli": cli_launches["cost_volume"],
         "launches_cli_inference": cli_inference_launches["cost_volume"],
+        # The probabilistic path (phases prob_*): one forward of each model
+        # setup at 448x1024 b1 and of setup (a) at b8, the 12-frame streams
+        # without and with with_bw, and inference_main on 12 Sintel pairs.
+        "launches_prob": prob_launches,
+        # One probabilistic forward's worth at 448x1024 b1 and b2.
+        **{f"{what}_{key}": sum(r[what] for r in prob_levels[key])
+           for key in prob_levels for what in ("ms", "plain_ms", "bound_ms")},
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",

@@ -1,7 +1,9 @@
 """The port's entry points on the CPU: ``train_main`` on a synthetic
 FlyingChairs directory with ``configs/chairs_uflow.json``'s data and train
 sections, ``inference_main`` against the JAX ``inference_main`` on the same
-``.pth.tar``, and the CLIs' refusals without a card."""
+``.pth.tar`` (``uflow``, and ``uflow_prob`` with its entropy maps),
+``evaluate_flo_cli`` against the JAX one on those outputs, and the CLIs'
+refusals without a card."""
 
 import json
 import logging
@@ -97,14 +99,15 @@ def test_train_main_lowers_the_loss_on_cpu(tmp_path):
     assert fixed_batch_loss(trainer.model) < fixed_batch_loss(untrained)
 
 
-def _inference_cfg(module_config, root, out_root, ckpt):
+def _inference_cfg(module_config, root, out_root, ckpt, model=None, loss=None):
     return module_config({
         "seed": 0,
         "data": [{"root_chairs": str(root), "type": "valid", "name": "Chairs",
                   "n_frames": 2, "split": "trainval",
                   "test_shape": [H, W], "out_root": str(out_root)}],
-        "model": {"type": "uflow", "feature_norm": True, "level_dropout": 0.0},
-        "loss": {"type": "uflow"},
+        "model": model or {"type": "uflow", "feature_norm": True,
+                           "level_dropout": 0.0},
+        "loss": loss or {"type": "uflow"},
         "inference": {"pretrained_model": str(ckpt), "valid_batch_size": 2,
                       "workers": 2},
     })
@@ -153,6 +156,77 @@ def test_inference_main_matches_jax(tmp_path, monkeypatch):
             ent[0, 0], [2 * np.log(112 / 96), 2 * np.log(80 / 64)], rtol=1e-6)
 
 
+# sintel_uflow_elbo_inference.json's model and the loss keys inference reads
+PROB_MODEL = {"type": "uflow_prob", "feature_norm": True, "level_dropout": 0.1,
+              "out_channels": [2, 2, 0], "inv_cov": False, "n_pyramids": 1,
+              "mixture_weights": False}
+PROB_LOSS = {"type": "uflow_elbo", "approx": "diag", "n_components": 1,
+             "inv_cov": False}
+# The f32 uflow_prob model against the JAX one with its inference defaults
+# (H-fold on); rescaled and resized as above: in this test the .flo files
+# differed by at most 2.1e-5 px and the .npy entropies by 1.9e-6.
+PROB_ATOL = 5e-5
+
+
+def _prob_outputs(tmp_path, monkeypatch):
+    """Both packages' inference_main on one uflow_prob checkpoint: the
+    port's .flo paths, the JAX output root and the data root."""
+    import arflow_tpu.native
+    from arflow_tpu.cli import inference_main as jax_inference_main
+    from arflow_tpu.config import Config as JaxConfig
+
+    monkeypatch.setattr(arflow_tpu.native, "available", lambda: False)
+    root = make_chairs_dir(tmp_path / "chairs", np.random.RandomState(2),
+                           3, 80, 112)
+    model = get_model(Config(PROB_MODEL), device="cpu", seed=4)
+    ckpt = tmp_path / "prob.pth.tar"
+    torch.save({"epoch": 0, "state_dict": model.state_dict()}, ckpt)
+    written = cli.inference_main(
+        _inference_cfg(Config, root, tmp_path / "port", ckpt, PROB_MODEL,
+                       PROB_LOSS), log, device="cpu")
+    jax_inference_main(_inference_cfg(JaxConfig, root, tmp_path / "jax", ckpt,
+                                      PROB_MODEL, PROB_LOSS), log)
+    return written, tmp_path / "jax", root
+
+
+def test_inference_main_prob_matches_jax_and_evaluates(tmp_path, monkeypatch,
+                                                       capsys):
+    pytest.importorskip("flax", reason="arflow_tpu.models needs flax")
+    from arflow_tpu.cli import evaluate_flo_cli as jax_evaluate_flo_cli
+
+    written, jax_root, root = _prob_outputs(tmp_path, monkeypatch)
+    assert len(written) == 3
+    for path in written:
+        name = os.path.basename(path)
+        for ext in (".flo", ".npy"):
+            ours = (read_flo(path) if ext == ".flo" else np.load(path[:-4] + ext))
+            theirs = (read_flo(str(jax_root / name)) if ext == ".flo"
+                      else np.load(str(jax_root / name)[:-4] + ext))
+            assert ours.shape == theirs.shape == (80, 112, 2)
+            assert np.isfinite(ours).all()
+            np.testing.assert_allclose(ours, theirs, rtol=0, atol=PROB_ATOL)
+
+    # evaluate-flo over the port's outputs, ground truth the data's .flo
+    gt_root = tmp_path / "gt"
+    gt_root.mkdir()
+    for path in written:
+        name = os.path.basename(path)
+        (gt_root / name).write_bytes(
+            (root / name.replace("_img1.flo", "_flow.flo")).read_bytes())
+    capsys.readouterr()
+    args = ["--pred_root", str(tmp_path / "port"), "--gt_root", str(gt_root),
+            "--sp_samples", "11"]
+    out = cli.evaluate_flo_cli(args)
+    printed = capsys.readouterr().out
+    jax_evaluate_flo_cli(args)
+    assert printed == capsys.readouterr().out
+    assert printed.startswith("EPE: ") and "AUC: " in printed
+    assert out["files"] == 3 and np.isfinite([out["epe"], out["auc"]]).all()
+    assert printed.splitlines()[0] == f"EPE: {out['epe']:.4f} over 3 files"
+    cli.main(["evaluate-flo", *args])  # python -m arflow_tpu_torch.cli
+    assert capsys.readouterr().out == printed
+
+
 def test_entry_points_refuse_without_a_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -174,7 +248,10 @@ def test_entry_points_refuse_without_a_card(tmp_path, monkeypatch):
     cfg.model.dtype = "int8"
     with pytest.raises(ValueError, match="int8"):
         cli.train_main(cfg, log, device="cpu")
-    cfg = _inference_cfg(Config, tmp_path, tmp_path, "w.pth.tar")
-    cfg.loss.approx = "diag"
+    # the mixture weights net (chairs_uflow_elbo_mixture.json) comes with
+    # ELBO training
+    cfg = _inference_cfg(Config, tmp_path, tmp_path, "w.pth.tar",
+                         dict(PROB_MODEL, mixture_weights=True, n_pyramids=2),
+                         dict(PROB_LOSS, approx="mixture", n_components=2))
     with pytest.raises(NotImplementedError, match="probabilistic UFlow"):
         cli.inference_main(cfg, log, device="cpu")

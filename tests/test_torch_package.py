@@ -45,14 +45,17 @@ bad = sorted(m for m in sys.modules
 print(" ".join(names), "|", bad)
 """
 
-# The entry points and the host-side pipeline, which no earlier module
-# imported: they must be among the modules checked.
+# The entry points, the host-side pipeline and the probabilistic path, which
+# no earlier module imported: they must be among the modules checked.
 ENTRY_AND_DATA = [
     "arflow_tpu_torch.cli", "arflow_tpu_torch.data",
     "arflow_tpu_torch.data.datasets", "arflow_tpu_torch.data.get_dataset",
     "arflow_tpu_torch.data.loader", "arflow_tpu_torch.data.transforms",
     "arflow_tpu_torch.training.checkpoint", "arflow_tpu_torch.utils.flow_io",
     "arflow_tpu_torch.utils.logger", "arflow_tpu_torch.utils.summary",
+    "arflow_tpu_torch.models.uflow_prob", "arflow_tpu_torch.ops.triag",
+    "arflow_tpu_torch.training.entropy", "arflow_tpu_torch.utils.gmm",
+    "arflow_tpu_torch.utils.metrics",
 ]
 
 
@@ -63,7 +66,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().split(" | ", 1)
     names = names.split()
-    assert len(names) >= 36  # every module of the package was imported
+    assert len(names) >= 40  # every module of the package was imported
     assert set(ENTRY_AND_DATA) <= set(names)
     assert bad == "[]", bad
 
@@ -87,7 +90,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 @pytest.mark.parametrize("model_cfg", [
     {"type": "pwclite", "n_frames": 2},
-    {"type": "uflow_prob", "out_channels": [2, 2, 0]},
+    {"type": "uflow_prob", "out_channels": [2, 2, 0], "mixture_weights": True,
+     "n_pyramids": 2},
     {"type": "uflow", "dtype": "bfloat16"},
 ])
 def test_unported_configs_raise_and_name_the_roadmap(model_cfg):

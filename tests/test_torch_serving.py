@@ -53,3 +53,49 @@ def test_streaming_engine_matches_jax_and_monolithic(jax_params):
     engine.reset()
     assert engine.push(seq[0]) is None
     assert engine.pyramids_computed == 5
+
+
+# float32 on the CPU: the stream's pyramid (B) and decoder (K*B) batches
+# differ from the monolithic forward's (2B and 2K*B), and the convolutions
+# round differently for them (measured: at most 1.05e-5 px on flows of up
+# to 17.5 px, 3.4e-6 on entropies of up to 6.9).
+PROB_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("model_cfg, loss_cfg", [
+    ({"type": "uflow_prob", "out_channels": [2, 2, 0]}, {"approx": "diag"}),
+    ({"type": "uflow_prob", "out_channels": [2, 2, 0], "n_pyramids": 2},
+     {"approx": "mixture", "n_components": 2}),
+], ids=["diag", "mixture_two_pyramids"])
+def test_streaming_prob_engine_matches_monolithic(model_cfg, loss_cfg):
+    from arflow_tpu_torch.models import get_model
+    from arflow_tpu_torch.training.entropy import extract_uv_entropy
+
+    seq = frames(4, seed=5, dtype=np.float32)
+    model = get_model(Config(model_cfg), device="cpu", seed=2)
+    engine = StreamingFlowEngine(Config(model_cfg), model.state_dict(),
+                                 with_bw=True, device="cpu",
+                                 loss_cfg=Config(loss_cfg))
+    assert engine.push(seq[0]) is None
+    for prev, cur in zip(seq, seq[1:]):
+        out = engine.push(cur)
+        assert sorted(out) == ["entropy", "flow", "flow_bw"]
+        with torch.no_grad():
+            mono = model(torch.from_numpy(prev), torch.from_numpy(cur),
+                         with_bk=True)
+        ent = extract_uv_entropy(mono["flows_fw"], Config(loss_cfg), mono,
+                                 generator=torch.Generator().manual_seed(0))
+        for got, want in ((out["flow"], mono["flows_fw"][0][..., :2]),
+                          (out["flow_bw"], mono["flows_bw"][0][..., :2]),
+                          (out["entropy"], ent)):
+            assert tuple(got.shape) == (1, H, W, 2)
+            torch.testing.assert_close(got, want, rtol=0, atol=PROB_ATOL)
+    assert engine.pyramids_computed == 4
+    # without an approx, no entropy
+    plain = StreamingFlowEngine(Config(model_cfg), model.state_dict(),
+                                device="cpu", loss_cfg=Config({"type": "uflow"}))
+    plain.push(seq[0])
+    assert sorted(plain.push(seq[1])) == ["flow"]
+    with pytest.raises(ValueError, match="mixture_weights"):
+        StreamingFlowEngine(Config(dict(model_cfg, mixture_weights=True)),
+                            model.state_dict(), device="cpu")

@@ -29,19 +29,18 @@ def few_torch_threads():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def jax_params():
-    """Full-width JAX ``PWCFlow`` params as numpy float32, drawn from
-    ``RandomState(0)`` in the tree that ``PWCFlow.init`` makes (its shapes
+def draw_jax_params(model_cfg, seed=0, **init_kwargs):
+    """Full-width JAX parameters of ``model_cfg`` as numpy float32, drawn
+    from ``RandomState(seed)`` in the tree that ``init`` makes (its shapes
     from ``jax.eval_shape``, which skips compiling the init): xavier-uniform
     kernels, as the init draws them, and small nonzero biases, so that the
     bias conversion is exercised too."""
-    model = jax_get_model(JaxConfig(CFG))
+    model = jax_get_model(JaxConfig(model_cfg))
     img = jax.ShapeDtypeStruct((1, H, W, 3), jnp.float32)
     shapes = jax.eval_shape(
-        lambda r, a, b: model.init(r, a, b, with_bk=False),
+        lambda r, a, b: model.init(r, a, b, **init_kwargs),
         jax.random.PRNGKey(0), img, img)["params"]
-    rs = np.random.RandomState(0)
+    rs = np.random.RandomState(seed)
 
     def draw(leaf):
         shape = leaf.shape
@@ -52,6 +51,12 @@ def jax_params():
         return rs.uniform(-limit, limit, shape).astype(np.float32)
 
     return jax.tree_util.tree_map(draw, shapes)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """Full-width JAX ``PWCFlow`` params (``draw_jax_params``)."""
+    return draw_jax_params(CFG, with_bk=False)
 
 
 def frames(n, seed, dtype=np.float64):
