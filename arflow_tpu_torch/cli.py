@@ -2,6 +2,7 @@
 offline evaluation of its outputs, as ``arflow_tpu/cli.py`` has them.
 
     arflow-torch-train -c configs/chairs_uflow.json [--device cpu]
+    arflow-torch-train -c configs/chairs_uflow_elbo.json [--device cpu]
     arflow-torch-inference -c cfg.json -m ckpt.pth.tar [--device cpu]
     arflow-torch-evaluate-flo --pred_root out/ --gt_root gt/
     python -m arflow_tpu_torch.cli train|inference|evaluate-flo ...
@@ -146,6 +147,7 @@ def train_cli(argv=None):
                 "valid_size": 0,
                 "workers": 1,
                 "valid_freq": 1,
+                "track_auc": True,
             }
         )
     if args.model is not None:

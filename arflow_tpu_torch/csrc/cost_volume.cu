@@ -21,22 +21,37 @@
 // - Displacement rows over warps (against few blocks with long serial
 //   paths). A block covers a 32x8 pixel tile. A thread owns a strip of 8
 //   consecutive x in one pixel row and one dy row, with all 2md+1 dx:
-//   8*(2md+1) sums in registers, 72 at md=4. Warp w of a block takes the
-//   block's w-th dy row; lane l takes pixel row l%8 and strip l/8. Where the
-//   tiles alone would leave SMs without a block (small levels, batch 1), the
-//   2md+1 dy rows of a tile are split over up to 2md+1 blocks (`make_plan`),
-//   so the grid still reaches every SM and each block's serial path shrinks
-//   by the same factor. The channel sum is never split.
-// - f2 from registers (against one shared-memory load per FMA). Per channel
-//   a thread reads the 16 f2 values its strip needs in its dy row (8 plus a
-//   4-column halo on each side) with four 16-byte shared loads and its 8 f1
-//   values with two, then runs 8*(2md+1) FMAs from registers: 6 loads per
-//   72 FMAs at md=4. Row strides of odd numbers of 16-byte units put the 8
-//   rows that a quarter-warp reads on distinct banks.
+//   8*(2md+1) sums in registers, 72 at md=4. Lane l of a warp takes pixel
+//   row l%8 and strip l/8. A block computes at most 5 dy rows (a "part");
+//   where the tiles alone would leave SMs without a block (small levels,
+//   batch 1), the 2md+1 dy rows of a tile are split over more parts
+//   (`make_plan`), so the grid still reaches every SM and each block's
+//   serial path shrinks by the same factor.
+// - Channels over four warps, in the plain version's order (against a
+//   gradient that two float32 roundings of the same sum cannot agree on).
+//   The plain version (f1 * shifted f2, then torch's mean over C) rounds
+//   each product, adds channel c into one of four running sums by c mod 4,
+//   and combines them as ((p0 + p1) + p2) + p3 times RN(1/C). This kernel
+//   does the same, bit for bit: group g's warp sums RN(a * b) for c = g,
+//   g+4, ... in order, without fused multiply-adds, and the four partial
+//   sums meet through shared memory at the end. The ELBO step at random
+//   weights is not smooth in its cost volume (the bilinear warp, leaky
+//   ReLUs): there, any other float32 rounding, one from float64
+//   included, moves its parameter gradients by 1e-3 against the plain
+//   version's. The extra registers that four sums per thread would need
+//   are not there: 72 sums already take most of a thread's share at this
+//   occupancy.
+// - f2 from registers (against one shared-memory load per product). Per
+//   channel a thread reads the 16 f2 values its strip needs in its dy row
+//   (8 plus a 4-column halo on each side) with four 16-byte shared loads
+//   and its 8 f1 values with two, then runs 8*(2md+1) products and sums
+//   from registers: 6 loads per 72 products at md=4. Row strides of odd
+//   numbers of 16-byte units put the 8 rows that a quarter-warp reads on
+//   distinct banks.
 // - Channel chunks through a ring (against loads not overlapped with
 //   compute). f2's halo tile and f1's tile go through a ring of 2 stages of
 //   8 channels in shared memory, filled with cp.async: the copies of chunk
-//   k+1 run under the FMAs of chunk k, with one barrier per chunk. A copy
+//   k+1 run under the arithmetic of chunk k, with one barrier per chunk. A copy
 //   whose source lies outside the image has source size 0, which writes
 //   zeros, so the zero halo is never materialized and the inner loop has no
 //   bounds checks. A thread issues the copies of a staged position for all
@@ -44,24 +59,25 @@
 //   Rows whose width is a multiple of 4 floats (every UFlow level of
 //   384x640), with 16-byte aligned pointers, take 16-byte copies and
 //   16-byte stores; other shapes take 4-byte copies and scalar stores in the
-//   same kernel (template parameter kVec). The ring is 63,488 bytes at md=4,
-//   which needs the opt-in above 48 KB.
+//   same kernel (template parameter kVec). The ring is 52,224 bytes at 5 dy
+//   rows, which needs the opt-in above 48 KB.
 // - Occupancy (against too few resident warps). md is a template parameter,
-//   so the sums stay in registers; __launch_bounds__ asks for 2 blocks of
-//   2md+1 warps per SM, 18 warps (4.5 per scheduler) at md=4.
-// - Stores. A warp stages each output plane of its tile in the ring slot
-//   the last chunk left free, then writes it back so that each 16-byte
-//   store instruction covers whole 128-byte lines (4 tile rows). Stored
-//   straight from the strips, each instruction covers part of 8 lines, and
-//   the output, the larger share of the bytes, goes out markedly slower.
-// - Sum order. Each output sums fmaf over c = 0..C-1 in order, in float32,
-//   and is divided by C at the end, rounded as division rounds it, as the
-//   plain version's mean does. No atomics: the result does not depend on
-//   the launch plan.
+//   so the sums stay in registers; __launch_bounds__ sizes the registers
+//   for one block of 4 x 5 warps per SM at md=4 (5 warps per scheduler).
+// - Stores. For each output plane, the four groups' partial sums meet in
+//   the ring slot the last chunk left free; the first group's warps combine
+//   them, stage the plane and write it back so that each 16-byte store
+//   instruction covers whole 128-byte lines (4 tile rows). Stored straight
+//   from the strips, each instruction covers part of 8 lines, and the
+//   output, the larger share of the bytes, goes out markedly slower.
+// - Sum order. Each output is (((p0 + p1) + p2) + p3) * RN(1/C) in float32,
+//   as the plain version's mean computes it. No atomics: the result does not
+//   depend on the launch plan.
 //
 // Tensor cores are not used. At the level-1 shape of a 384x640 batch of 8
-// the float32 FMA work (637 MFLOP, 9.5 us at 67 TFLOP/s) lies under the
-// byte bound (21.3 us), so CUDA cores can reach the bound. TF32 would break
+// the float32 work (637 MFLOP as separate multiplies and adds, 19 us at
+// half of 67 TFLOP/s, the rate that counts fused multiply-adds) lies under
+// the byte bound (21.3 us), so CUDA cores can reach the bound. TF32 would break
 // the float32 parity that the port holds with TF32 off, and a 3xTF32 split
 // would triple the work on a banded product that fills little of a wgmma
 // tile.
@@ -87,11 +103,22 @@ constexpr int kF1Stride = kTileX + 4;
 constexpr int kOutStride = kTileX + 4;  // a warp's staged output plane
 static_assert(kF2Stride % 8 == 4 && kF1Stride % 8 == 4 && kOutStride % 8 == 4,
               "odd 16-byte units");
-// A free ring slot holds every warp's staged output plane (md <= 4).
-static_assert(kChunk * kTileY * (kF2Stride + kF1Stride) >=
-                  9 * kTileY * kOutStride,
-              "output staging fits a ring slot");
+constexpr int kGroups = 4;   // channel groups: group g sums c = g (mod 4)
+constexpr int kMaxRows = 5;  // dy rows per block: kGroups * kMaxRows warps
+static_assert(kChunk % kGroups == 0, "a chunk starts at a group boundary");
+// A free ring slot holds one output plane of every warp's partial sums. What
+// that needs grows faster with the dy rows than the slot does, so checking
+// the most rows checks them all.
+static_assert(kChunk * ((kTileY + kMaxRows - 1) * kF2Stride +
+                        kTileY * kF1Stride) >=
+                  kGroups * kMaxRows * kTileY * kOutStride,
+              "partial sums fit a ring slot");
 constexpr int kMaxGridY = 65535;
+
+// Dy rows (warps per channel group) of the largest block at this md.
+constexpr int max_rows(int md) {
+  return 2 * md + 1 < kMaxRows ? 2 * md + 1 : kMaxRows;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const float* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -140,11 +167,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Grid: x = x-tile + ntx * part, y = y-tile, z = batch. Block: one warp per
-// dy row of the block's part (nw warps). Part p takes dy rows
-// [p*nw, min((p+1)*nw, 2md+1)).
+// Grid: x = x-tile + ntx * part, y = y-tile, z = batch. Block: kGroups * nw
+// warps; warp w takes channel group w / nw and dy row w % nw of the block's
+// part. Part p takes dy rows [p*nw, min((p+1)*nw, 2md+1)).
 template <int MD, bool kVec>
-__global__ void __launch_bounds__(32 * (2 * MD + 1), 2)
+__global__ void __launch_bounds__(32 * kGroups * max_rows(MD), 1)
 cost_volume_fwd_kernel(const float* __restrict__ f1,
                        const float* __restrict__ f2,
                        float* __restrict__ out,
@@ -160,12 +187,14 @@ cost_volume_fwd_kernel(const float* __restrict__ f1,
   const int y0 = blockIdx.y * kTileY;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int r = tid % kTileY;          // pixel row in the tile
-  const int s = (tid & 31) / kTileY;   // strip in the tile row
+  const int lane = tid & 31;
+  const int g = (tid >> 5) / nw;       // channel group
+  const int row = (tid >> 5) - g * nw; // dy row in the part
+  const int r = lane % kTileY;         // pixel row in the tile
+  const int s = lane / kTileY;         // strip in the tile row
   const int dy0 = part * nw;           // the block's first dy row
   const int ndy = min(nw, S - dy0);    // dy rows this block computes
-  const bool active = warp < ndy;
+  const bool active = row < ndy;
   const int f2_rows = kTileY + ndy - 1;        // staged f2 rows
   const int f2_pitch = (kTileY + nw - 1) * kF2Stride;  // floats per channel
   const int f2_stage = kChunk * f2_pitch;
@@ -228,10 +257,11 @@ cost_volume_fwd_kernel(const float* __restrict__ f1,
     if (active) {
       const int nc = min(kChunk, C - k * kChunk);
       const float* slot = smem + (k % kStages) * stage;
-      const float* s2 = slot + (r + warp) * kF2Stride + s * kStrip;
+      const float* s2 = slot + (r + row) * kF2Stride + s * kStrip;
       const float* s1 = slot + f2_stage + r * kF1Stride + s * kStrip;
 #pragma unroll
-      for (int cc = 0; cc < kChunk; ++cc) {
+      for (int h = 0; h < kChunk / kGroups; ++h) {
+        const int cc = g + kGroups * h;
         if (cc < nc) {
           const float* pa = s1 + cc * kTileY * kF1Stride;
           const float* pv = s2 + cc * f2_pitch;
@@ -251,7 +281,8 @@ cost_volume_fwd_kernel(const float* __restrict__ f1,
           for (int p = 0; p < kStrip; ++p) {
 #pragma unroll
             for (int j = 0; j < S; ++j) {
-              acc[p][j] = fmaf(a[p], v[p + j + kHalo - MD], acc[p][j]);
+              acc[p][j] = __fadd_rn(acc[p][j],
+                                    __fmul_rn(a[p], v[p + j + kHalo - MD]));
             }
           }
         }
@@ -259,55 +290,65 @@ cost_volume_fwd_kernel(const float* __restrict__ f1,
     }
   }
 
-  if (!active) return;
-  // sum / C, correctly rounded as division rounds it (Markstein's
-  // correction of sum * RN(1/C)), without division's branch to its slow
-  // path per value.
-  const float cf = static_cast<float>(C);
-  const float rc = 1.0f / cf;
+  // For each output plane j, every warp puts its partial sums in the ring
+  // slot the last chunk did not use (every warp finished reading it before
+  // the last barrier, and no copy is in flight into it), laid out
+  // [group][dy row][pixel row][column]; the first group's warps combine the
+  // four in order and store the plane.
+  const int group_stride = nw * kTileY * kOutStride;
+  float* partials = smem + (nchunks % kStages) * stage;
+  float* staged = partials + row * kTileY * kOutStride;  // group 0's plane
+  float* mine = staged + g * group_stride + r * kOutStride + s * kStrip;
+  const float rc = 1.0f / static_cast<float>(C);
   const int y = y0 + r;
   const int x = x0 + s * kStrip;
-  float* ob = out + (static_cast<size_t>(b) * S + dy0 + warp) * S * plane;
-  // The ring slot the last chunk did not use: every warp finished reading
-  // it before the last barrier, and no copy is in flight into it.
-  float* staged = smem + (nchunks % kStages) * stage +
-                  warp * kTileY * kOutStride;
+  float* ob = out + (static_cast<size_t>(b) * S + dy0 + row) * S * plane;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
-    float v[kStrip];
-#pragma unroll
-    for (int p = 0; p < kStrip; ++p) {
-      const float q = acc[p][j] * rc;
-      v[p] = fmaf(fmaf(-q, cf, acc[p][j]), rc, q);
+    if (active) {
+      *reinterpret_cast<float4*>(mine) =
+          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+      *reinterpret_cast<float4*>(mine + 4) =
+          make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
     }
-    float* oj = ob + static_cast<size_t>(j) * plane;
-    if constexpr (kVec) {
-      // Through shared memory, so that each store instruction writes
-      // whole 128-byte lines (4 tile rows).
-      float* t = staged + r * kOutStride + s * kStrip;
-      *reinterpret_cast<float4*>(t) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(t + 4) =
-          make_float4(v[4], v[5], v[6], v[7]);
-      __syncwarp();
-#pragma unroll
-      for (int h = 0; h < kTileY * kTileX / 128; ++h) {
-        const int i = (tid & 31) + 32 * h;
-        const int row = i / (kTileX / 4);
-        const int col = (i - row * (kTileX / 4)) * 4;
-        if (y0 + row < H && x0 + col < W) {
-          *reinterpret_cast<float4*>(
-              oj + static_cast<size_t>(y0 + row) * W + x0 + col) =
-              *reinterpret_cast<const float4*>(staged + row * kOutStride +
-                                               col);
-        }
-      }
-      __syncwarp();
-    } else if (y < H) {
+    __syncthreads();
+    if (active && g == 0) {
+      float v[kStrip];
 #pragma unroll
       for (int p = 0; p < kStrip; ++p) {
-        if (x + p < W) oj[static_cast<size_t>(y) * W + x + p] = v[p];
+        const float sum = ((mine[p] + mine[p + group_stride]) +
+                           mine[p + 2 * group_stride]) +
+                          mine[p + 3 * group_stride];
+        v[p] = sum * rc;
+      }
+      float* oj = ob + static_cast<size_t>(j) * plane;
+      if constexpr (kVec) {
+        // Through shared memory, so that each store instruction writes
+        // whole 128-byte lines (4 tile rows).
+        *reinterpret_cast<float4*>(mine) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(mine + 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+        __syncwarp();
+#pragma unroll
+        for (int h = 0; h < kTileY * kTileX / 128; ++h) {
+          const int i = lane + 32 * h;
+          const int ty = i / (kTileX / 4);
+          const int tx = (i - ty * (kTileX / 4)) * 4;
+          if (y0 + ty < H && x0 + tx < W) {
+            *reinterpret_cast<float4*>(
+                oj + static_cast<size_t>(y0 + ty) * W + x0 + tx) =
+                *reinterpret_cast<const float4*>(staged + ty * kOutStride +
+                                                 tx);
+          }
+        }
+      } else if (y < H) {
+#pragma unroll
+        for (int p = 0; p < kStrip; ++p) {
+          if (x + p < W) oj[static_cast<size_t>(y) * W + x + p] = v[p];
+        }
       }
     }
+    __syncthreads();  // plane j is out before plane j+1's sums come in
   }
 }
 
@@ -319,8 +360,9 @@ struct Plan {
   size_t smem;
 };
 
-// Tiles first; where B * tiles would leave SMs without a block, split each
-// tile's 2md+1 dy rows over the fewest parts that give every SM one.
+// Tiles first, each tile's 2md+1 dy rows in parts of at most kMaxRows; where
+// B * tiles * parts would leave SMs without a block, split the dy rows over
+// the fewest parts that give every SM one.
 cudaError_t make_plan(int B, int H, int W, int md, Plan* plan) {
   int dev = 0;
   int sms = 0;
@@ -334,14 +376,14 @@ cudaError_t make_plan(int B, int H, int W, int md, Plan* plan) {
   const int nty = (H + kTileY - 1) / kTileY;
   if (nty > kMaxGridY) return cudaErrorInvalidValue;
   const long long tiles = static_cast<long long>(ntx) * nty * B;
-  int parts = 1;
+  int parts = (S + kMaxRows - 1) / kMaxRows;
   while (parts < S && tiles * parts < sms) ++parts;
   const int nw = (S + parts - 1) / parts;
   parts = (S + nw - 1) / nw;
   plan->ntx = ntx;
   plan->nw = nw;
   plan->grid = dim3(ntx * parts, nty, B);
-  plan->block = dim3(32 * nw);
+  plan->block = dim3(32 * kGroups * nw);
   plan->smem = sizeof(float) * kStages * kChunk *
                ((kTileY + nw - 1) * kF2Stride + kTileY * kF1Stride);
   return cudaSuccess;

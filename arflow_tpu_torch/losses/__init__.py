@@ -1,22 +1,28 @@
-"""Loss factory of the port. Only ``type: "uflow"`` is ported so far; the
+"""Loss factory of the port: ``type: "uflow"`` and ``"uflow_elbo"``. The
 other losses raise and name the roadmap item that brings them."""
 
 from arflow_tpu_torch.losses.uflow import UFlowLoss  # noqa: F401
+from arflow_tpu_torch.losses.uflow_elbo import UFlowElboLoss  # noqa: F401
 
 _NOT_PORTED = {
-    "uflow_elbo": "the probabilistic UFlow path",
-    "unflow": "the PWC-Lite family",
-    "elbo": "the PWC-Lite family",
-    "fullres": "the PWC-Lite family",
-    "mse": "the PWC-Lite family",
+    "unflow": "'the PWC-Lite family'",
+    "elbo": "'the PWC-Lite family'",
+    "fullres": "'the PWC-Lite family'",
+    "mse": "'the probabilistic UFlow path' (MSE training)",
 }
 
 
 def get_loss(cfg):
-    if cfg.type == "uflow":
+    """The loss of ``cfg`` (the config's ``loss`` section). Its kind is
+    ``type``, or ``name`` where a config has no ``type``
+    (``configs/chairs_uflow_elbo.json``)."""
+    kind = cfg.get("type", cfg.get("name"))
+    if kind == "uflow":
         return UFlowLoss(cfg)
-    if cfg.type in _NOT_PORTED:
+    if kind == "uflow_elbo":
+        return UFlowElboLoss(cfg)
+    if kind in _NOT_PORTED:
         raise NotImplementedError(
-            f"loss type {cfg.type!r} is not ported yet: ROADMAP.md queue 1, "
-            f"'{_NOT_PORTED[cfg.type]}'")
-    raise NotImplementedError(cfg.type)
+            f"loss type {kind!r} is not ported yet: ROADMAP.md queue 1, "
+            f"{_NOT_PORTED[kind]}")
+    raise NotImplementedError(kind)

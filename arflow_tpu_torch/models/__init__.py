@@ -11,7 +11,7 @@ from arflow_tpu_torch.device import resolve_device
 from arflow_tpu_torch.models.layers import init_xavier_uniform
 from arflow_tpu_torch.models.uflow import PWCFeaturePyramid, PWCFlow  # noqa: F401
 from arflow_tpu_torch.models.uflow_prob import (  # noqa: F401
-    ELBO_TRAINING,
+    MIXTURE_WEIGHTS,
     ComponentNet,
     PWCProbFlow,
 )
@@ -54,7 +54,7 @@ def get_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
     if cfg.type != "uflow" and cfg.get("mixture_weights"):
         raise NotImplementedError(
             f"model.mixture_weights (MixtureWeightsNet) is not ported yet: "
-            f"{ELBO_TRAINING}")
+            f"{MIXTURE_WEIGHTS}")
     dev = resolve_device(device)
     common = dict(feature_norm=cfg.get("feature_norm", True),
                   level_dropout=cfg.get("level_dropout", 0.0))

@@ -126,15 +126,6 @@ class PWCFlow(nn.Module):
         """Both frames' ``feature_pyramids`` -> NCHW flows, finest first."""
         return self.forward_2_frames(fps1[0], fps2[0])
 
-    def _maybe_level_dropout(self, tensors, generator):
-        """Multiply all of ``tensors`` by one draw ``U[0,1) > p`` from
-        ``generator``; as they are without a generator (not training)."""
-        if generator is None:
-            return tensors
-        keep = torch.rand((), generator=generator, device=generator.device)
-        keep = (keep > self.level_dropout).to(tensors[0])
-        return [t * keep for t in tensors]
-
     def forward_2_frames(self, fp1: list, fp2: list, generator=None) -> list:
         """Coarse-to-fine flow between two feature pyramids; NCHW flows.
         With ``generator``, level dropout draws from it (training)."""
@@ -165,8 +156,8 @@ class PWCFlow(nn.Module):
                 if i + 1 < len(hidden):
                     x = torch.cat([x, context], dim=1)
             flow = self._flow_layers[level][-1](context)
-            context, flow = self._maybe_level_dropout([context, flow],
-                                                      generator)
+            context, flow = level_dropout([context, flow], self.level_dropout,
+                                          generator)
 
             if flow_up is not None:
                 flow = flow + flow_up
@@ -175,7 +166,8 @@ class PWCFlow(nn.Module):
             flows.insert(0, flow)
 
         refinement = self._refine_model(torch.cat([context, flow], dim=1))
-        (refinement,) = self._maybe_level_dropout([refinement], generator)
+        (refinement,) = level_dropout([refinement], self.level_dropout,
+                                      generator)
         flows[0] = flow + refinement
         flows.insert(0, upsample(flows[0], is_flow=True))
         flows.insert(0, upsample(flows[0], is_flow=True))
@@ -204,6 +196,18 @@ class PWCFlow(nn.Module):
             res["flows_bw"] = [to_nhwc(f) for f in
                                self.forward_2_frames(fp2, fp1, generator)]
         return res
+
+
+def level_dropout(tensors, p: float, generator, num_groups: int = 1):
+    """Multiply each of ``num_groups`` equal batch groups of all
+    ``tensors`` by its own draw ``U[0,1) > p`` from ``generator`` (a whole
+    level kept or dropped); the tensors as they are without a generator
+    (not training)."""
+    if generator is None:
+        return tensors
+    u = torch.rand((num_groups,), generator=generator, device=generator.device)
+    keep = (u > p).to(tensors[0]).repeat_interleave(tensors[0].shape[0] // num_groups)
+    return [t * keep.view(-1, 1, 1, 1) for t in tensors]
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -16,10 +16,12 @@ pyramids share one decoder and their outputs are concatenated groupwise:
 Only the gates-off math is ported: none of the JAX package's TPU relayouts
 (H-fold decoder, split decoder, subpixel deconv, refinement fold). The K
 components and both directions ride the batch axis through one decoder
-pass, which keeps each sample's math. Training (level dropout) and
-``MixtureWeightsNet`` are not ported yet; ``get_model`` refuses
-``mixture_weights`` and ``forward(train=True)`` raises. Module and
-``state_dict`` keys are the reference's.
+pass, which keeps each sample's math. ``forward(train=True)`` turns level
+dropout on: at each level and at the refinement, each (component,
+direction) group of that pass draws its own whole-level keep from the
+``generator``, as the JAX model's ``num_groups`` draws do.
+``MixtureWeightsNet`` is not ported yet; ``get_model`` refuses
+``mixture_weights``. Module and ``state_dict`` keys are the reference's.
 
 Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
 """
@@ -46,6 +48,7 @@ from arflow_tpu_torch.models.uflow import (
     PYRAMID_FILTERS,
     REFINEMENT_FILTERS,
     PWCFeaturePyramid,
+    level_dropout,
     to_nchw,
     to_nhwc,
 )
@@ -57,7 +60,8 @@ from arflow_tpu_torch.ops import (
     upsample,
 )
 
-ELBO_TRAINING = "ROADMAP.md queue 1, 'the probabilistic UFlow path' (ELBO training)"
+MIXTURE_WEIGHTS = ("ROADMAP.md queue 1, 'the probabilistic UFlow path' "
+                   "(MixtureWeightsNet)")
 
 
 def _pad_channels(x: torch.Tensor, channels: int) -> torch.Tensor:
@@ -76,7 +80,7 @@ class PWCProbFlow(nn.Module):
         self.inv_cov = inv_cov
         self.n_pyramids = n_pyramids
         self.feature_norm = feature_norm
-        self.level_dropout = level_dropout  # read by the training slice
+        self.level_dropout = level_dropout
         self.diag_bias = -math.log(2) if inv_cov else math.log(2)
         l_ch, m_ch, n_ch = self.out_channels
         self._feature_pyramid_extractor = nn.ModuleList(
@@ -128,9 +132,12 @@ class PWCProbFlow(nn.Module):
             pieces.append(upsample(out[:, l_ch + m_ch:], is_flow=False))
         return torch.cat(pieces, dim=1)
 
-    def forward_2_frames(self, fp1: list, fp2: list) -> list:
+    def forward_2_frames(self, fp1: list, fp2: list, generator=None,
+                         num_groups: int = 1) -> list:
         """Coarse-to-fine outputs between two feature pyramids, NCHW, finest
-        first: [full, 1/2, 1/4 (refined, clamped), 1/8, 1/16, 1/32]."""
+        first: [full, 1/2, 1/4 (refined, clamped), 1/8, 1/16, 1/32]. With
+        ``generator``, level dropout draws from it, one keep per each of
+        the batch's ``num_groups`` groups at each level and the refinement."""
         l_ch, m_ch, _ = self.out_channels
         out_up = context_up = None
         outs = []
@@ -164,6 +171,8 @@ class PWCProbFlow(nn.Module):
                 if i + 1 < len(hidden):
                     x = torch.cat([x, context], dim=1)
             out = self._flow_layers[level][-1](context)
+            context, out = level_dropout([context, out], self.level_dropout,
+                                         generator, num_groups)
             # Level 1 adds the N extras: the propagated groups get zeros.
             out = out + _pad_channels(out_up, out.shape[1])
             outs.insert(0, out)
@@ -172,7 +181,10 @@ class PWCProbFlow(nn.Module):
                 context_up = self._context_up_layers[level](context)
 
         # Level 1's output already holds all L+M+N channels.
-        refined = out + self._refine_model(torch.cat([context, out], dim=1))
+        (refinement,) = level_dropout(
+            [self._refine_model(torch.cat([context, out], dim=1))],
+            self.level_dropout, generator, num_groups)
+        refined = out + refinement
         log_diag = refined[:, l_ch:l_ch + m_ch]
         log_diag = (log_diag.clamp_min(-5.0) if self.inv_cov
                     else log_diag.clamp(-10.0, 10.0))
@@ -196,13 +208,14 @@ class PWCProbFlow(nn.Module):
             out.append(torch.cat(pieces, dim=1))
         return out
 
-    def _decode_groups(self, srcs: list, tgts: list) -> list:
+    def _decode_groups(self, srcs: list, tgts: list, generator=None) -> list:
         """Pyramid pairs (one per component and direction) -> each pair's
-        outputs, from one decoder pass with the pairs on the batch axis."""
+        outputs, from one decoder pass with the pairs on the batch axis;
+        with ``generator``, each pair is a level-dropout group."""
         nb = srcs[0][0].shape[0]
         fa = [torch.cat(p, dim=0) for p in zip(*srcs)]
         fb = [torch.cat(p, dim=0) for p in zip(*tgts)]
-        outs = self.forward_2_frames(fa, fb)
+        outs = self.forward_2_frames(fa, fb, generator, num_groups=len(srcs))
         return [[o[i * nb:(i + 1) * nb] for o in outs] for i in range(len(srcs))]
 
     def decode(self, fps1: list, fps2: list) -> list:
@@ -211,23 +224,32 @@ class PWCProbFlow(nn.Module):
         return self.flows_cat(self._decode_groups(fps1, fps2))
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
-                with_bk: bool = True, train: bool = False) -> dict:
+                with_bk: bool = True, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
         """Images NHWC (B,H,W,3) in [0, 1] -> {'flows_fw'[, 'flows_bw']},
-        each 6 NHWC outputs, finest first."""
-        if train:
-            raise NotImplementedError(
-                f"training PWCProbFlow is not ported yet: {ELBO_TRAINING}")
+        each 6 NHWC outputs, finest first.
+
+        ``train=True`` turns level dropout on; it draws from ``generator``,
+        which it then needs unless ``level_dropout`` is 0: at each of the 4
+        levels and the refinement, one draw per (component, direction)."""
+        if train and self.level_dropout > 0:
+            if generator is None:
+                raise ValueError("PWCProbFlow(train=True) with level_dropout "
+                                 "> 0 needs a torch.Generator")
+        else:
+            generator = None
         nb = img1.shape[0]
         fps = self.feature_pyramids(torch.cat([to_nchw(img1), to_nchw(img2)]))
         fp1 = [[f[:nb] for f in fp] for fp in fps]
         fp2 = [[f[nb:] for f in fp] for fp in fps]
         k = self.n_pyramids
         if with_bk:
-            groups = self._decode_groups(fp1 + fp2, fp2 + fp1)
+            groups = self._decode_groups(fp1 + fp2, fp2 + fp1, generator)
             res = {"flows_fw": self.flows_cat(groups[:k]),
                    "flows_bw": self.flows_cat(groups[k:])}
         else:
-            res = {"flows_fw": self.decode(fp1, fp2)}
+            res = {"flows_fw": self.flows_cat(
+                self._decode_groups(fp1, fp2, generator))}
         return {key: [to_nhwc(f) for f in flows] for key, flows in res.items()}
 
 
@@ -244,9 +266,14 @@ class ComponentNet(nn.Module):
         self.pwcnet2 = PWCProbFlow(**kwargs)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
-                with_bk: bool = True, train: bool = False) -> dict:
-        res1 = self.pwcnet1(img1, img2, with_bk=with_bk, train=train)
-        res2 = self.pwcnet2(img1, img2, with_bk=with_bk, train=train)
+                with_bk: bool = True, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
+        """As ``PWCProbFlow.forward``; the second net draws its level
+        dropout after the first."""
+        res1 = self.pwcnet1(img1, img2, with_bk=with_bk, train=train,
+                            generator=generator)
+        res2 = self.pwcnet2(img1, img2, with_bk=with_bk, train=train,
+                            generator=generator)
         return {key: [torch.cat([a[..., 0:2], b[..., 0:2], a[..., 2:4],
                                  b[..., 2:4]], dim=-1)
                       for a, b in zip(res1[key], res2[key])]

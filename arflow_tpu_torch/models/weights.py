@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from arflow_tpu_torch.device import resolve_device
-from arflow_tpu_torch.models.uflow_prob import ELBO_TRAINING
+from arflow_tpu_torch.models.uflow_prob import MIXTURE_WEIGHTS
 
 
 def _np(a) -> np.ndarray:
@@ -115,7 +115,7 @@ def uflow_state_dict_from_jax(params) -> dict:
 def _refuse_mixture_weights(params):
     if "mixture_weights_net" in params:
         raise NotImplementedError(
-            f"MixtureWeightsNet weights are not ported yet: {ELBO_TRAINING}")
+            f"MixtureWeightsNet weights are not ported yet: {MIXTURE_WEIGHTS}")
 
 
 def _prob_state_dict(params) -> dict:

@@ -4,6 +4,9 @@
 
 The 7x7 patches are 49 shifted slices of one zero-padded canvas, channel
 ``k`` holding tap ``(k // 7, k % 7)``, as the JAX package writes them.
+
+``census_loss_no_penalty`` is the ELBO loss's form: the per-pixel distance
+and a weight map, the penalty applied by the caller.
 """
 
 from __future__ import annotations
@@ -79,3 +82,39 @@ def census_loss(image_a: torch.Tensor, image_b: torch.Tensor,
     diff_g = diff.reshape(num_groups, -1)
     mask_g = padded_mask.detach().reshape(num_groups, -1)
     return diff_g.sum(dim=1) / (mask_g.sum(dim=1) + 1e-6)
+
+
+def census_loss_no_penalty(image_a: torch.Tensor, image_b: torch.Tensor,
+                           mask: torch.Tensor, patch_size: int = 7,
+                           num_groups: int = 1, a_rep: int = 1):
+    """Per-pixel soft Hamming distance (B,1,H,W) of the two census
+    transforms, and the border-zeroed mask divided by its sum.
+
+    ``num_groups > 1`` splits the batch into equal groups, each weight map
+    normalized by its own group's mask sum (both directions of the ELBO
+    loss in one batch). ``a_rep > 1``: ``image_a`` holds one image per
+    (group, entry) while ``image_b`` and ``mask`` hold ``a_rep`` copies of
+    each group, sample-major within the group; ``image_a``'s transform is
+    computed once and broadcast over the copies. The mask sums carry no
+    gradient."""
+    ca = census_transform(image_a, patch_size)
+    cb = census_transform(image_b, patch_size)
+    if a_rep > 1:
+        tail = cb.shape[1:]
+        b_small = image_a.shape[0] // num_groups
+        ca = ca.reshape((num_groups, 1, b_small) + tail)
+        cb = cb.reshape((num_groups, a_rep, b_small) + tail)
+        sq_dist = (ca - cb).square()
+        hamming = (sq_dist / (0.1 + sq_dist)).sum(dim=3, keepdim=True)
+        hamming = hamming.reshape((-1, 1) + tail[1:])
+    else:
+        hamming = soft_hamming(ca, cb)
+    return hamming, _group_normalize(zero_mask_border(mask, patch_size),
+                                     num_groups)
+
+
+def _group_normalize(padded_mask: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """mask / (its group's detached sum + 1e-6), groups along the batch."""
+    sums = padded_mask.detach().reshape(num_groups, -1).sum(dim=1) + 1e-6
+    denom = sums.repeat_interleave(padded_mask.shape[0] // num_groups)
+    return padded_mask / denom.view((-1,) + (1,) * (padded_mask.dim() - 1))

@@ -13,14 +13,72 @@ whole (..., M) slices. The JAX package writes this as a ``lax.scan`` in
 XLA, not Pallas, so here it is plain PyTorch, one Python step per
 diagonal.
 
-Values only: the analytic adjoints, the banded products, the
-natural-gradient identities and ``inverse_l1norm`` come with ELBO training.
+The banded products ``matrix_vector_product*`` (y = L x and y = L^T x,
+the general ones with k-support bands) are plain tensor ops that autograd
+differentiates. The ``sparse`` ELBO posterior calls only
+``matrix_vector_product_general``; the other three are ported with it as
+one set, for MSE training (``arflow_tpu/losses/mse.py`` and the natural
+gradient call them), and the tests hold all four to ``arflow_tpu``. The
+solves are values only: their analytic adjoints, the natural-gradient
+identities and ``inverse_l1norm`` come with MSE training.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def _pad_nhwc(x, top=0, bottom=0, left=0, right=0):
+    return F.pad(x, (0, 0, left, right, top, bottom))
+
+
+def matrix_vector_product(a, b, c, d, x):
+    """y = L x with bands |D|C| / |B|A|, NHWC."""
+    b_y = _pad_nhwc(b * x[:, :, :-1], left=1)
+    c_y = _pad_nhwc(c * x[:, :-1], top=1)
+    d_y = _pad_nhwc(d * x[:, :-1, :-1], top=1, left=1)
+    return a * x + b_y + c_y + d_y
+
+
+def matrix_vector_product_T(a, b, c, d, x):
+    """y = L^T x, NHWC."""
+    b_y = _pad_nhwc(b * x[:, :, 1:], right=1)
+    c_y = _pad_nhwc(c * x[:, 1:], bottom=1)
+    d_y = _pad_nhwc(d * x[:, 1:, 1:], bottom=1, right=1)
+    return a * x + b_y + c_y + d_y
+
+
+def _band(a, k, i, j):
+    """Channels of band (i, j): offset i rows up and j columns left."""
+    ind = i * (k + 1) + j
+    return a[..., ind * 2:(ind + 1) * 2]
+
+
+def matrix_vector_product_general(a, x, k: int = 1):
+    """y = L x with k-support bands. a: (B, M, N, 2*(k+1)**2), channel
+    pairs ordered by band ind = i*(k+1) + j (i rows up, j columns left);
+    x: (B, M, N, 2)."""
+    y = torch.zeros_like(x)
+    m, n = x.shape[1], x.shape[2]
+    for i in range(k + 1):
+        for j in range(k + 1):
+            coeff = _band(a, k, i, j)
+            y = y + _pad_nhwc(coeff[:, :m - i, :n - j] * x[:, :m - i, :n - j],
+                              top=i, left=j)
+    return y
+
+
+def matrix_vector_product_T_general(a, x, k: int = 1):
+    """y = L^T x, the transpose of ``matrix_vector_product_general``."""
+    y = torch.zeros_like(x)
+    m, n = x.shape[1], x.shape[2]
+    for i in range(k + 1):
+        for j in range(k + 1):
+            coeff = _band(a, k, i, j)
+            y = y + _pad_nhwc(coeff[:, :m - i, :n - j] * x[:, i:, j:],
+                              bottom=i, right=j)
+    return y
 
 
 def _skew(x: torch.Tensor, num_diags: int) -> torch.Tensor:

@@ -8,7 +8,8 @@ A checkpoint holds ``{"state_dict", "epoch", "i_iter", "best_error",
   and the reference's ``load_state_dict(strict=True)`` all read it;
 - ``optimizer``: the ``torch.optim`` optimizer's ``state_dict()``;
 - ``opt_count``: the steps the learning-rate schedule has counted;
-- ``generator``: the level-dropout generator's ``get_state()``;
+- ``generator``: the ``get_state()`` of the trainer's generator, which
+  level dropout (and the ELBO loss's Monte-Carlo noise) draw from;
 - the counters ``epoch``, ``i_iter`` and ``best_error``, for resume.
 
 The JAX package's msgpack and orbax checkpoints stay with it.

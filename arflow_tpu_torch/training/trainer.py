@@ -9,8 +9,8 @@ runs at that flush and names the iteration that went non-finite.
 
 Checkpoints are ``.pth.tar`` files (``training/checkpoint.py``): the
 model's ``state_dict``, the optimizer's state, the schedule's step count,
-the level-dropout generator's state and the epoch, iteration and
-best-error counters. ``train.resume`` restores all of them, so a resumed
+the state of the generator that level dropout (and the ELBO loss's noise)
+draw from, and the epoch, iteration and best-error counters. ``train.resume`` restores all of them, so a resumed
 run continues an unbroken one bit for bit where the data is the same (the
 augmentation's draws are not in a checkpoint, in either package).
 
@@ -125,6 +125,10 @@ class BaseTrainer:
     def _validate_with_gt(self):
         raise NotImplementedError
 
+    def _valid_freq(self) -> int:
+        """Validate after every this many epochs."""
+        return self.cfg.valid_freq
+
     # -- main loop ------------------------------------------------------------
 
     def train(self):
@@ -141,7 +145,7 @@ class BaseTrainer:
             self._resume_ckpt = ckpt
         for _ in range(self.i_epoch, self.cfg.epoch_num):
             self._run_one_epoch()
-            if self.i_epoch % self.cfg.valid_freq == 0 and self.valid_loader:
+            if self.i_epoch % self._valid_freq() == 0 and self.valid_loader:
                 errors, error_names = self._validate_with_gt()
                 valid_res = " ".join(
                     "{}: {:.2f}".format(*t) for t in zip(error_names, errors)

@@ -33,6 +33,13 @@ class UFlowTrainer(BaseTrainer):
             raise not_ported("device-side photometric augmentation",
                              "queue 1, 'device-side augmentation'")
 
+    def _batch_inputs(self, data) -> list:
+        """A loader batch -> ``train_step``'s device tensors."""
+        img1, img2 = (self._to_device(data[k]) for k in ("img1", "img2"))
+        img1_ph = self._to_device(data["img1_ph"]) if "img1_ph" in data else img1
+        img2_ph = self._to_device(data["img2_ph"]) if "img2_ph" in data else img2
+        return [img1, img2, img1_ph, img2_ph]
+
     def train_step(self, img1, img2, img1_ph, img2_ph) -> torch.Tensor:
         """One optimizer step on device tensors (NHWC). Returns the step's
         ``METRIC_KEYS`` as one detached device tensor."""
@@ -55,13 +62,11 @@ class UFlowTrainer(BaseTrainer):
             if i_step > self.cfg.epoch_size:
                 break
             self._ensure_init()
-            img1, img2 = (self._to_device(data[k]) for k in ("img1", "img2"))
-            img1_ph = self._to_device(data["img1_ph"]) if "img1_ph" in data else img1
-            img2_ph = self._to_device(data["img2_ph"]) if "img2_ph" in data else img2
+            inputs = self._batch_inputs(data)
             am_data_time.update(timer.lap())
-            metrics = self.train_step(img1, img2, img1_ph, img2_ph)
+            metrics = self.train_step(*inputs)
             am_batch_time.update(timer.lap())
-            self._queue_step_metrics(metrics, img1.shape[0], i_step,
+            self._queue_step_metrics(metrics, inputs[0].shape[0], i_step,
                                      key_meters, self.KEY_METERS,
                                      am_batch_time, am_data_time)
             self.i_iter += 1

@@ -14,8 +14,13 @@ data pipeline, checkpoints and a resume, and ``inference_main`` writing
 ``.flo`` files; and the probabilistic UFlow path at Sintel's size: five
 model setups of shipped configs with their entropy maps, the batch rate,
 the stream with entropy, and ``inference_main`` plus ``evaluate_flo_cli``
-on a Sintel-format tree. It checks the outputs, and times the kernels, the
-forwards, the streams, the train step and the entry points. Each phase prints
+on a Sintel-format tree; and ELBO training of that model: both kernels
+at the ELBO step's level shapes, one step of four shipped ELBO setups
+against the plain cost volume and float64, steps through
+``UFlowElboTrainer``, and ``train_main`` with chairs_uflow_elbo.json with
+validation, a resume and an overfit check. It checks the outputs, and
+times the kernels, the forwards, the streams, the train steps and the
+entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
 the card's name and power limit (``nvidia-smi``) and ends with one line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -55,6 +60,7 @@ from arflow_tpu_torch.cli import evaluate_flo_cli, inference_main, train_main
 from arflow_tpu_torch.data import Chairs, ConcatDataset
 from arflow_tpu_torch.data.loader import DataLoader
 from arflow_tpu_torch.losses import get_loss
+from arflow_tpu_torch.losses import blocks as elbo_blocks_module
 from arflow_tpu_torch.losses import uflow as uflow_loss_module
 from arflow_tpu_torch.models import get_model, load_pretrained
 from arflow_tpu_torch.models import uflow as uflow_module
@@ -77,6 +83,7 @@ from arflow_tpu_torch.training import get_trainer
 from arflow_tpu_torch.training.checkpoint import load_checkpoint
 from arflow_tpu_torch.training.entropy import extract_uv_entropy
 from arflow_tpu_torch.training.trainer import BaseTrainer
+from arflow_tpu_torch.training.uflow_elbo_trainer import UFlowElboTrainer
 from arflow_tpu_torch.training.uflow_trainer import UFlowTrainer
 from arflow_tpu_torch.utils.flow_io import read_flo, write_flo
 from arflow_tpu_torch.utils.metrics import evaluate_flow
@@ -212,6 +219,7 @@ def profile_window(fn, n: int, untraced_ms: float, groups=None) -> dict:
                                "aten::cudnn_convolution_transpose")) / 1e3 / n
     out = {"device_ms_per_call": dev_ms, "untraced_ms_per_call": untraced_ms,
            "busy_share": dev_ms / untraced_ms,
+           "kernel_launches_per_call": sum(e.count for e in kernels) / n,
            "cost_volume_ms_per_call": cv_ms["_fwd"] + cv_ms["_bwd"],
            "cost_volume_fwd_ms_per_call": cv_ms["_fwd"],
            "cost_volume_bwd_ms_per_call": cv_ms["_bwd"],
@@ -249,6 +257,10 @@ def shifted_pair(n, h, w, dy, dx, gen, dev):
 
 def max_abs(a, b) -> float:
     return float((a - b).abs().max())
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b).norm() / b.norm().clamp_min(1e-300))
 
 
 def cost_volume_bound_ms(b, c, h, w, md=MD):
@@ -411,16 +423,10 @@ def phase_kernels(dev, smi):
     return check_forward(checks, gen, dev), time_forward(levels, gen, dev, smi)
 
 
-def phase_grad_kernels(dev, smi):
-    """The backward kernel against its plain version at the training level
-    shapes of 256x448 b8 (the main path), the b8 levels of 384x640 and of
-    the cli phase's 384x512, and the ragged shapes, both gradients and each
-    alone; then timed at the training levels."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    train_levels = level_shapes(TB, TH, TW)
-    checks = ([(shape, MD, 0) for shape in
-               train_levels + level_shapes(B) + level_shapes(TB, CH, CW)]
-              + RAGGED)
+def check_grad(checks, gen, dev):
+    """The backward kernel against its plain version at each (shape, md,
+    offset) of ``checks``, both gradients and each alone; the largest error
+    and the inputs of the aligned md=MD shapes."""
     max_err = 0.0
     inputs = {}
     for shape, md, offset in checks:
@@ -448,9 +454,14 @@ def phase_grad_kernels(dev, smi):
         max_err = max(max_err, err)
         if offset == 0 and md == MD:
             inputs[shape] = (g, f1, f2)
+    return max_err, inputs
 
+
+def time_grad(shapes, inputs, smi, cell) -> list:
+    """``kernel_time`` rows of the backward kernel at a cell's level
+    shapes: graph-timed and eager kernel, plain version, bound."""
     rows = []
-    for level, shape in zip((1, 2, 3, 4), train_levels):
+    for level, shape in zip((1, 2, 3, 4), shapes):
         g, f1, f2 = inputs[shape]
         ms = graph_ms(lambda: cost_volume_grad_kernel(g, f1, f2, MD))
         eager_ms = cuda_ms(lambda: cost_volume_grad_kernel(g, f1, f2, MD),
@@ -458,15 +469,29 @@ def phase_grad_kernels(dev, smi):
         plain_ms = cuda_ms(lambda: cost_volume_grad_reference(g, f1, f2, MD),
                            iters=5)
         bound_ms, bound_by, nbytes = cost_volume_grad_bound_ms(*shape)
-        row = {"level": level, "batch": TB, "shape": shape,
+        row = {"level": level, "batch": shape[0], "shape": shape,
                "blocks": cost_volume_grad_blocks(shape, MD), "ms": ms,
                "eager_ms": eager_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                "share_of_bound": bound_ms / ms, "library_ms": None}
         rows.append(row)
-        emit({"phase": "kernel_time", "kernel": "cost_volume_bwd", **row,
-              "card": smi})
-    return max_err, rows
+        emit({"phase": "kernel_time", "kernel": "cost_volume_bwd", "cell": cell,
+              **row, "card": smi})
+    return rows
+
+
+def phase_grad_kernels(dev, smi):
+    """The backward kernel against its plain version at the training level
+    shapes of 256x448 b8 (the main path), the b8 levels of 384x640 and of
+    the cli phase's 384x512, and the ragged shapes, both gradients and each
+    alone; then timed at the training levels."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    train_levels = level_shapes(TB, TH, TW)
+    checks = ([(shape, MD, 0) for shape in
+               train_levels + level_shapes(B) + level_shapes(TB, CH, CW)]
+              + RAGGED)
+    max_err, inputs = check_grad(checks, gen, dev)
+    return max_err, time_grad(train_levels, inputs, smi, "train")
 
 
 def phase_inference(cfg, dev, smi):
@@ -675,9 +700,6 @@ def phase_train(cfg, dev, smi):
             == sorted(grads64)):
         raise AssertionError("different parameters have gradients")
 
-    def rel_l2(a, b):
-        return float((a.double() - b).norm() / b.norm().clamp_min(1e-300))
-
     def cat(g):
         return torch.cat([g[n].flatten().double() for n in sorted(g)])
 
@@ -752,10 +774,12 @@ def phase_train(cfg, dev, smi):
     return launches
 
 
-def train_step_profile(one_step, ms) -> dict:
+def train_step_profile(one_step, ms,
+                       census=(uflow_loss_module, "census_loss")) -> dict:
     """``profile_window`` over 3 train steps, with the device time of the
-    convolutions (forward, backward), the census forward, the range map and
-    the ``grid_sample`` backward."""
+    convolutions (forward, backward), the census forward (the function
+    ``census`` names, in its module), the range map and the
+    ``grid_sample`` backward."""
     groups = {
         "conv_fwd": ("aten::cudnn_convolution",
                      "aten::cudnn_convolution_transpose"),
@@ -767,8 +791,8 @@ def train_step_profile(one_step, ms) -> dict:
         "grid_sample_bwd": ("aten::cudnn_grid_sampler_backward",
                             "aten::grid_sampler_2d_backward"),
     }
-    with mock.patch.object(uflow_loss_module, "census_loss",
-                           census_range(uflow_loss_module.census_loss)):
+    module, name = census
+    with mock.patch.object(module, name, census_range(getattr(module, name))):
         return profile_window(one_step, 3, ms, groups)
 
 
@@ -868,16 +892,18 @@ class EntryPointProbe:
     """While active: each train step's iteration, metric row and the
     trainer's own data and batch laps (``am_data_time``, ``am_batch_time``);
     each wait of a loader's consumer for a batch; and the synchronized wall
-    time of each validation and each checkpoint save."""
+    time of each validation and each checkpoint save, of ``trainer_cls``
+    and its subclasses."""
 
-    def __init__(self):
+    def __init__(self, trainer_cls=UFlowTrainer):
+        self.trainer_cls = trainer_cls
         self.steps, self.waits = [], []
         self.seconds = {"_validate_with_gt": [], "save_model": []}
 
     @contextlib.contextmanager
     def active(self):
-        probe = self
-        queue = UFlowTrainer._queue_step_metrics
+        probe, cls = self, self.trainer_cls
+        queue = cls._queue_step_metrics
         loader_iter = DataLoader.__iter__
 
         def queue_step(trainer, metrics, batch_size, i_step, *rest):
@@ -899,7 +925,7 @@ class EntryPointProbe:
                 yield batch
 
         def timed(name):
-            method = getattr(UFlowTrainer, name)
+            method = getattr(cls, name)
 
             def wrapped(trainer, *args, **kwargs):
                 torch.cuda.synchronize()
@@ -912,10 +938,10 @@ class EntryPointProbe:
 
         with contextlib.ExitStack() as stack:
             stack.enter_context(mock.patch.object(
-                UFlowTrainer, "_queue_step_metrics", queue_step))
+                cls, "_queue_step_metrics", queue_step))
             stack.enter_context(mock.patch.object(DataLoader, "__iter__", timed_iter))
             for name in self.seconds:
-                stack.enter_context(mock.patch.object(UFlowTrainer, name, timed(name)))
+                stack.enter_context(mock.patch.object(cls, name, timed(name)))
             yield self
 
 
@@ -943,10 +969,10 @@ def trainer_state(trainer) -> dict:
         "best_error": trainer.best_error})
 
 
-def valid_epes(save_root) -> list:
+def events_of(save_root, tag) -> list:
+    """The values of the scalar ``tag`` in ``save_root``'s events.jsonl."""
     with open(os.path.join(save_root, "events.jsonl")) as f:
-        return [r["value"] for r in map(json.loads, f)
-                if r["tag"] == "Valid_EPE_0"]
+        return [r["value"] for r in map(json.loads, f) if r["tag"] == tag]
 
 
 def stacked_pairs(root, split, n, dev) -> list:
@@ -1015,7 +1041,7 @@ def run_cli_phase(tmp, dev, smi):
     launches = {k.name: k.launches for k in KERNELS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rows = torch.stack([s["metrics"] for s in probe.steps]).cpu()
-    epes = valid_epes(dir_a)
+    epes = events_of(dir_a, "Valid_EPE_0")
     files = sorted(os.listdir(dir_a))
     want = {"cost_volume": 8 * n_steps + 4 * n_valid * CLI_EPOCHS,
             "cost_volume_bwd": 8 * n_steps}
@@ -1151,7 +1177,7 @@ def run_cli_phase(tmp, dev, smi):
     emit({"phase": "cli_resume", "checkpoint_epoch": load_checkpoint(ckpt_b)["epoch"],
           "restored": sorted(restored), "differ_from_saved": differ,
           "resumed_iters": iters, "final_iter": run_c.i_iter,
-          "final_epoch": run_c.i_epoch, "valid_epe": valid_epes(dir_c)})
+          "final_epoch": run_c.i_epoch, "valid_epe": events_of(dir_c, "Valid_EPE_0")})
     if not restored or differ:
         raise AssertionError(f"resume restored {sorted(restored)}; differs: {differ}")
     if iters != list(range(steps_per_epoch, n_steps)) or (
@@ -1163,7 +1189,7 @@ def run_cli_phase(tmp, dev, smi):
     emit({"phase": "cli_convergence", "fixed_batch": [TB, CH, CW],
           "fixed_batch_loss": fit, "optimizer_steps": fit_steps,
           "valid_epe_untrained": epe_untrained, "valid_epe_A": epes,
-          "valid_epe_C": valid_epes(dir_c)})
+          "valid_epe_C": events_of(dir_c, "Valid_EPE_0")})
     if not all(np.isfinite(v) and v < fit["untrained"]
                for k, v in fit.items() if k != "untrained"):
         raise AssertionError(f"training did not lower the loss: {fit}")
@@ -1638,6 +1664,395 @@ def run_prob_cli_phase(tmp, dev, smi):
     return launches
 
 
+# ELBO training of the probabilistic UFlow: shipped configs' model and loss
+# at chairs_uflow_elbo.json's crop 256x448 and batch 4, float32.
+EB, EH, EW = 4, 256, 448
+ELBO_STEPS = 10
+# (key, config, model overrides), as PROB_SETUPS: (e) without its mixture
+# weights net, whose loss then takes uniform weights.
+ELBO_SETUPS = [
+    ("a", "chairs_uflow_elbo.json", {}),
+    ("b", "chairs_uflow_elbo_nondiag.json", {}),
+    ("d", "chairs_uflow_elbo_lowrank.json", {}),
+    ("e", "chairs_uflow_elbo_mixture.json", {"mixture_weights": False}),
+]
+# elbo_cli: chairs_uflow_elbo.json's train entry crops 256x448 from the
+# 384x512 pairs; epoch_size 2 runs 3 steps per epoch (the loop breaks after
+# step epoch_size, as the JAX trainer's does).
+ELBO_CLI_EPOCH_SIZE = 2
+ELBO_OVERFIT_STEPS = 20
+
+
+class RecordingElboTrainer(RecordingTrainer, UFlowElboTrainer):
+    """Keeps each step's metric row (total, l_ph, l_sm, entropy, l_oof)."""
+
+
+class FixedNoise:
+    """``loss`` with the same injected draws at every call."""
+
+    def __init__(self, loss, noise):
+        self.loss, self.noise, self.cfg = loss, noise, loss.cfg
+
+    def __call__(self, res, img1, img2, generator=None):
+        return self.loss(res, img1, img2, noise=self.noise)
+
+
+def elbo_noise(loss_cfg, b, h2, w2, gen, dev):
+    """One draw of the loss's noise at batch ``b`` and level-2 size, as
+    ``noise=`` takes it."""
+    n = loss_cfg.n_samples
+    if loss_cfg.approx == "lowrank":
+        shape = (n * b, 1, 1, 2 * loss_cfg.columns)
+    else:
+        shape = (n * b, h2, w2, 2)
+    noise = {k: torch.randn(shape, generator=gen, device=dev)
+             for k in ("eps12", "eps21")}
+    if loss_cfg.approx == "mixture":
+        uniform = torch.ones((b, loss_cfg.n_components), device=dev)
+        for k in ("z12", "z21"):
+            noise[k] = torch.multinomial(uniform, n, replacement=True, generator=gen)
+    return noise
+
+
+def phase_elbo_kernels(dev, smi):
+    """Both kernels against their plain versions, then timed, at the ELBO
+    step's level shapes of 256x448: batch 8 (both directions of b4 on one
+    decoder pass) and 16 (two pyramids' components, setup (e)). At each
+    shape the forward kernel's rms error against float64 must be at most
+    the plain version's; the row also counts the outputs where the two
+    differ at all (the kernel rounds as the plain version does)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    levels = {f"elbo_b{b}": level_shapes(b, EH, EW) for b in (2 * EB, 4 * EB)}
+    checks = [(shape, MD, 0) for shapes in levels.values() for shape in shapes]
+    fwd_err = check_forward(checks, gen, dev)
+    for shape, _, _ in checks:
+        f1 = torch.randn(shape, generator=gen, device=dev)
+        f2 = torch.randn(shape, generator=gen, device=dev)
+        exact = compute_cost_volume_reference(f1.double(), f2.double(), MD)
+        kernel = cost_volume_kernel(f1, f2, MD)
+        plain = compute_cost_volume_reference(f1, f2, MD)
+        rms = {name: float((v.double() - exact).square().mean().sqrt())
+               for name, v in (("kernel", kernel), ("plain", plain))}
+        emit({"phase": "kernel_rms_vs_f64", "kernel": "cost_volume",
+              "shape": shape, **rms, "unequal": int((kernel != plain).sum())})
+        if not rms["kernel"] <= rms["plain"]:
+            raise AssertionError(f"cost_volume {shape}: rms error vs float64 "
+                                 f"{rms['kernel']} > the plain version's {rms['plain']}")
+    fwd_rows = time_forward(levels, gen, dev, smi)
+    bwd_err, inputs = check_grad(checks, gen, dev)
+    bwd_rows = {key: time_grad(shapes, inputs, smi, key)
+                for key, shapes in levels.items()}
+    return fwd_err, fwd_rows, bwd_err, bwd_rows
+
+
+def elbo_step_check(key, name, cfg, model, loss, x, noise):
+    """One step's loss and parameter gradients with the kernels against the
+    plain-cost-volume model and a float64 one, dropout off, under the same
+    noise, with the train phase's bounds. Returns the failure's message, or
+    None."""
+    def step_grads(net, inputs, draws, plain):
+        net.zero_grad(set_to_none=True)
+        swap = (mock.patch.object(uflow_prob_module, "compute_cost_volume", plain)
+                if plain else contextlib.nullcontext())
+        with swap:
+            res = net(inputs["img1"], inputs["img2"], with_bk=True)
+            out = loss(res, inputs["img1"], inputs["img2"], noise=draws)
+            out["total"].backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in net.named_parameters()
+                 if p.grad is not None}
+        net.zero_grad(set_to_none=True)
+        return float(out["total"].detach()), grads
+
+    torch.backends.cudnn.deterministic = True
+    reset_launch_counts()
+    total, grads = step_grads(model, x, noise, None)
+    step_launches = {k.name: k.launches for k in KERNELS}
+    total_again, grads_again = step_grads(model, x, noise, None)
+    total_plain, grads_plain = step_grads(model, x, noise,
+                                          compute_cost_volume_reference)
+    as64 = lambda d: {k: v.double() if v.is_floating_point() else v  # noqa: E731
+                      for k, v in d.items()}
+    total64, grads64 = step_grads(copy.deepcopy(model).double(), as64(x),
+                                  as64(noise), compute_cost_volume_reference)
+    if {k.name: k.launches for k in KERNELS} != {
+            n: 2 * v for n, v in step_launches.items()}:
+        raise AssertionError(f"({key}) the plain runs launched a kernel")
+    if not (sorted(grads) == sorted(grads_again) == sorted(grads_plain)
+            == sorted(grads64)):
+        raise AssertionError(f"({key}) different parameters have gradients")
+
+    def cat(g):
+        return torch.cat([g[n].flatten().double() for n in sorted(g)])
+
+    over = {n: (rel_l2(grads[n], grads64[n]), rel_l2(grads_plain[n], grads64[n]))
+            for n in grads
+            if rel_l2(grads[n], grads64[n]) > 2 * rel_l2(grads_plain[n], grads64[n]) + 1e-5}
+    grad_err = rel_l2(cat(grads), cat(grads_plain))
+    loss_err = abs(total - total_plain) / abs(total_plain)
+    row = {"phase": "elbo_train_step_check", "setup": key, "config": name,
+           "approx": cfg.loss.approx, "n_samples": cfg.loss.n_samples,
+           "shape": [EB, EH, EW], "launches": step_launches,
+           "params_with_grad": len(grads), "loss": total,
+           "loss_plain": total_plain, "loss_plain_f64": total64,
+           "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
+           "grad_rel_l2_vs_plain": grad_err, "grad_rtol": TRAIN_GRAD_RTOL,
+           "grad_rel_l2_vs_f64": rel_l2(cat(grads), cat(grads64)),
+           "plain_grad_rel_l2_vs_f64": rel_l2(cat(grads_plain), cat(grads64)),
+           "kernel_run_to_run_loss_rel": abs(total - total_again) / abs(total),
+           "kernel_run_to_run_grad_rel_l2": rel_l2(cat(grads), cat(grads_again)),
+           "params_over_tolerance": over}
+    failure = None
+    if step_launches != {"cost_volume": 4, "cost_volume_bwd": 4}:
+        failure = f"({key}) a step launched {step_launches}, not 4 + 4"
+    elif not (np.isfinite(total) and loss_err <= TRAIN_LOSS_RTOL
+              and grad_err <= TRAIN_GRAD_RTOL and not over):
+        failure = (f"({key}) step kernels vs plain: loss {loss_err}, "
+                   f"gradients {grad_err}, parameters {over}")
+    torch.backends.cudnn.deterministic = False
+    emit(row)
+    return failure
+
+
+def phase_elbo_train(dev, smi):
+    """Each setup: one step against the plain cost volume and float64
+    (``elbo_step_check``), then ELBO_STEPS steps through
+    ``UFlowElboTrainer.train()`` with the cost-volume launches counted.
+    Setup (a)'s trainer is timed and profiled (``elbo_train_time``). A
+    failed step check fails the phase once every setup has run."""
+    log = logging.getLogger("chip_smoke")
+    launches = {}
+    failures = []
+    for key, name, overrides in ELBO_SETUPS:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        cfg = prob_config(name, overrides)
+        if get_trainer(cfg.trainer) is not UFlowElboTrainer:
+            raise AssertionError(f"{name} names trainer {cfg.trainer!r}")
+        model = get_model(cfg.model, device=dev, seed=SEED)
+        loss = get_loss(cfg.loss)
+        batches = []
+        for dy, dx in ((1, 2), (2, -3), (-3, 1)):
+            a, b = shifted_pair(EB, EH, EW, dy, dx, gen, dev)
+            batches.append({"img1": a, "img2": b})
+        noise = elbo_noise(cfg.loss, EB, EH // 4, EW // 4, gen, dev)
+        failure = elbo_step_check(key, name, cfg, model, loss, batches[0], noise)
+        if failure:
+            failures.append(failure)
+
+        train_cfg = cfg.train.copy()
+        train_cfg.update(epoch_num=1, seed=SEED)
+        trainer = RecordingElboTrainer(
+            [batches[i % len(batches)] for i in range(ELBO_STEPS)], None, model,
+            loss, log, os.path.join(REPO, "outputs", "chip_smoke"), train_cfg,
+            model_cfg=cfg.model, full_cfg=cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[key] = {k.name: k.launches for k in KERNELS}
+        rows = torch.stack(trainer.rows).cpu()
+        emit({"phase": "elbo_train", "setup": key, "config": name,
+              "model_overrides": overrides, "approx": cfg.loss.approx,
+              "n_samples": cfg.loss.n_samples,
+              "level_dropout": cfg.model.level_dropout,
+              "shape": [EB, EH, EW], "steps": trainer.i_iter,
+              "seconds_incl_first_steps": seconds, "launches": launches[key],
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **{k: rows[:, i].tolist() for i, k in enumerate(
+                  ("losses", "l_ph", "l_sm", "entropy", "l_oof"))}})
+        if trainer.i_iter != ELBO_STEPS or len(rows) != ELBO_STEPS:
+            raise AssertionError(f"({key}) {trainer.i_iter} steps, not {ELBO_STEPS}")
+        if not bool(torch.isfinite(rows).all()):
+            raise AssertionError(f"({key}) non-finite training metrics")
+        want = 4 * ELBO_STEPS
+        if launches[key] != {"cost_volume": want, "cost_volume_bwd": want}:
+            raise AssertionError(f"({key}) {ELBO_STEPS} steps launched "
+                                 f"{launches[key]}, not {want} + {want}")
+        if key == "a":
+            elbo_train_time(trainer, batches[0], smi)
+        del trainer, model
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def elbo_train_time(trainer, x, smi):
+    """Setup (a)'s step: samples/s and device ms per step (CUDA events over
+    10 steps after 2 warm-up steps), peak memory, and a profile."""
+    def one_step():
+        trainer.train_step(x["img1"], x["img2"])
+
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(one_step, iters=10, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "elbo_train_time", "setup": "a", "shape": [EB, EH, EW],
+          "dtype": "float32", "ms_per_step": ms, "steps_per_s": 1e3 / ms,
+          "samples_per_s": EB * 1e3 / ms, "peak_memory_gb": peak, "card": smi})
+    emit({"phase": "elbo_train_profile", "setup": "a", "shape": [EB, EH, EW],
+          **train_step_profile(one_step, ms, census=(
+              elbo_blocks_module, "census_loss_no_penalty")), "card": smi})
+
+
+def elbo_cli_config(root, save_root, epochs, resume=None, track_auc=False):
+    """``configs/chairs_uflow_elbo.json`` with both data roots at ``root``,
+    ``epochs`` epochs of 3 steps that each validate (with ``track_auc`` if
+    asked: the AUC's numpy at sp_samples 100 takes about 3 s per pair) and
+    save; the rest (crop 256x448, hflip, hue 0.5, swapped channels, batch
+    4, Adam, 4 workers) as the config has it."""
+    cfg = load_config(os.path.join(REPO, "configs", "chairs_uflow_elbo.json"))
+    for entry in cfg.data:
+        entry.root_chairs = root
+    cfg.save_root = save_root
+    cfg.train.update(epoch_num=epochs, epoch_size=ELBO_CLI_EPOCH_SIZE,
+                     valid_freq=1, save_iter=0, track_auc=track_auc)
+    if resume is not None:
+        cfg.train.resume = resume
+    return cfg
+
+
+def phase_elbo_cli(dev, smi):
+    """``train_main`` with chairs_uflow_elbo.json on the FlyingChairs-format
+    directory of the cli phase (written anew here): 2 epochs of 3 steps
+    with validation and AUC, both checkpoints, a resume, and an overfit
+    check. Under ``PerSampleDraws``, as the cli phase."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elbo_cli_")
+    try:
+        with PerSampleDraws(SEED).active():
+            return run_elbo_cli_phase(tmp, dev, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_elbo_cli_phase(tmp, dev, smi):
+    log = logging.getLogger("chip_smoke")
+    root = os.path.join(tmp, "chairs")
+    os.makedirs(root)
+    write_chairs_dir(root, dev)
+    n_valid, steps_per_epoch = 2, ELBO_CLI_EPOCH_SIZE + 1
+    n_steps = CLI_EPOCHS * steps_per_epoch
+
+    dir_a = os.path.join(tmp, "a")
+    probe = EntryPointProbe(UFlowElboTrainer)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with probe.active():
+        run_a = train_main(elbo_cli_config(root, dir_a, CLI_EPOCHS, track_auc=True),
+                           log, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = torch.stack([s["metrics"] for s in probe.steps]).cpu()
+    files = sorted(os.listdir(dir_a))
+    valid = {name: events_of(dir_a, f"Valid_{name}_0")
+             for name in ("Loss", "EPE", "AUC", "AUC_diff", "entropy")}
+    # one decoder pass per step and per validation batch (both valid pairs)
+    want = {"cost_volume": 4 * n_steps + 4 * CLI_EPOCHS,
+            "cost_volume_bwd": 4 * n_steps}
+    laps = [s["data_s"] + s["batch_s"] for s in probe.steps]
+    steady = [s for s in probe.steps if s["i_step"] > 0]
+    steady_laps = sum(s["data_s"] + s["batch_s"] for s in steady)
+    valid_s = sum(probe.seconds["_validate_with_gt"])
+    save_s = sum(probe.seconds["save_model"])
+    emit({"phase": "elbo_cli_train", "run": "A", "config": "chairs_uflow_elbo.json",
+          "shape": [EB, EH, EW], "pairs_shape": [CH, CW],
+          "epochs": run_a.i_epoch, "steps": run_a.i_iter, "launches": launches,
+          "launches_want": want, "losses": rows[:, 0].tolist(),
+          "valid": valid, "best_error": run_a.best_error, "files": files,
+          "seconds_train_main": seconds, "step_laps_s": laps,
+          "samples_per_s": EB * len(laps) / sum(laps),
+          "samples_per_s_steady": EB * len(steady) / steady_laps,
+          "data_time_share": sum(s["data_s"] for s in probe.steps) / sum(laps),
+          "validation_ms_per_pair": 1e3 * (valid_s - save_s) / (n_valid * CLI_EPOCHS),
+          "save_ms": 1e3 * save_s / max(len(probe.seconds["save_model"]), 1),
+          "peak_memory_gb": peak_gb, "card": smi})
+    if (run_a.i_iter, run_a.i_epoch, len(rows)) != (n_steps, CLI_EPOCHS, n_steps):
+        raise AssertionError(f"run A: {run_a.i_iter} steps in {run_a.i_epoch} "
+                             f"epochs, not {n_steps} in {CLI_EPOCHS}")
+    if launches != want:
+        raise AssertionError(f"run A launched {launches}, not {want}")
+    if not (bool(torch.isfinite(rows).all())
+            and all(len(v) == CLI_EPOCHS and np.isfinite(v).all()
+                    for v in valid.values())):
+        raise AssertionError(f"run A: non-finite losses or validation {valid}")
+    if run_a.best_error != min(valid["Loss"]):
+        raise AssertionError(f"best checkpoint on {run_a.best_error}, not the "
+                             f"validation Loss {valid['Loss']}")
+    missing = ({"Chairs_ckpt.pth.tar", "Chairs_model_best.pth.tar", "events.jsonl"}
+               | {f"flow_fw_l2_{e}.npy" for e in range(1, CLI_EPOCHS + 1)}) - set(files)
+    if missing:
+        raise AssertionError(f"run A wrote no {sorted(missing)}")
+    loss_func = run_a.loss_func
+    del run_a
+
+    # Runs B and C: one epoch that saves, then a resume of its checkpoint.
+    dir_b, dir_c = os.path.join(tmp, "b"), os.path.join(tmp, "c")
+    run_b = train_main(elbo_cli_config(root, dir_b, 1), log, device=dev)
+    ckpt_b = os.path.join(dir_b, "Chairs_ckpt.pth.tar")
+    restored = {}
+    restore = BaseTrainer._restore_resume
+
+    def restore_and_copy(trainer):
+        restore(trainer)
+        restored.update(trainer_state(trainer))
+
+    probe_c = EntryPointProbe(UFlowElboTrainer)
+    with mock.patch.object(BaseTrainer, "_restore_resume", restore_and_copy), \
+            probe_c.active():
+        run_c = train_main(elbo_cli_config(root, dir_c, CLI_EPOCHS, resume=ckpt_b),
+                           log, device=dev)
+    want_b = trainer_state(run_b)
+    differ = sorted(k for k in want_b if not same_state(restored.get(k), want_b[k]))
+    iters = [s["i_iter"] for s in probe_c.steps]
+    emit({"phase": "elbo_cli_resume", "restored": sorted(restored),
+          "differ_from_saved": differ, "resumed_iters": iters,
+          "final_iter": run_c.i_iter, "final_epoch": run_c.i_epoch,
+          "valid_loss": events_of(dir_c, "Valid_Loss_0")})
+    if not restored or differ:
+        raise AssertionError(f"resume restored {sorted(restored)}; differs: {differ}")
+    if iters != list(range(steps_per_epoch, n_steps)) or (
+            run_c.i_iter, run_c.i_epoch) != (n_steps, CLI_EPOCHS):
+        raise AssertionError(f"resumed run: iterations {iters}, ended at "
+                             f"{run_c.i_iter} in epoch {run_c.i_epoch}")
+    del run_b, run_c
+
+    # Overfit: ELBO_OVERFIT_STEPS steps on one fixed unaugmented batch of
+    # train pairs under one fixed draw of the noise, dropout off, must
+    # lower that batch's loss below the untrained model's.
+    img1, img2, _ = stacked_pairs(root, "train", EB, dev)
+    cfg = elbo_cli_config(root, os.path.join(tmp, "overfit"), 1)
+    model = get_model(cfg.model, device=dev, seed=SEED)
+    model.level_dropout = 0.0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    fixed = FixedNoise(loss_func, elbo_noise(cfg.loss, EB, CH // 4, CW // 4, gen, dev))
+
+    def batch_loss():
+        with torch.no_grad():
+            return float(fixed(model(img1, img2, with_bk=True), img1, img2)["total"])
+
+    before = batch_loss()
+    cfg.train.update(epoch_num=1, epoch_size=ELBO_OVERFIT_STEPS)
+    trainer = UFlowElboTrainer([{"img1": img1, "img2": img2}] * ELBO_OVERFIT_STEPS,
+                               None, model, fixed, log, cfg.save_root, cfg.train,
+                               model_cfg=cfg.model, full_cfg=cfg)
+    trainer.train()
+    after = batch_loss()
+    emit({"phase": "elbo_cli_overfit", "batch": [EB, CH, CW],
+          "steps": trainer.i_iter, "loss_untrained": before, "loss_after": after})
+    if trainer.i_iter != ELBO_OVERFIT_STEPS or not (np.isfinite(after)
+                                                   and after < before):
+        raise AssertionError(f"{trainer.i_iter} steps on one batch: loss "
+                             f"{before} -> {after}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1645,31 +2060,46 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    smi = phase_device()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("device", phase_device)
     cfg = load_config(CONFIG)
-    phase_build()
-    max_err, per_level = phase_kernels(dev, smi)
-    grad_err, grad_rows = phase_grad_kernels(dev, smi)
-    model, launches = phase_inference(cfg, dev, smi)
-    serving = phase_serving(cfg, model, dev, smi)
+    timed("build", phase_build)
+    max_err, per_level = timed("kernels", phase_kernels, dev, smi)
+    grad_err, grad_rows = timed("grad_kernels", phase_grad_kernels, dev, smi)
+    model, launches = timed("inference", phase_inference, cfg, dev, smi)
+    serving = timed("serving", phase_serving, cfg, model, dev, smi)
     del model
-    prob_err, prob_levels = phase_prob_kernels(dev, smi)
-    prob_launches = {f"inference_{k}": v
-                     for k, v in phase_prob_inference(dev, smi).items()}
-    prob_launches["inference_b8"] = phase_prob_inference_time(dev, smi)
-    prob_serving = phase_prob_serving(dev, smi)
+    prob_err, prob_levels = timed("prob_kernels", phase_prob_kernels, dev, smi)
+    prob_launches = {f"inference_{k}": v for k, v in
+                     timed("prob_inference", phase_prob_inference, dev, smi).items()}
+    prob_launches["inference_b8"] = timed("prob_inference_time",
+                                          phase_prob_inference_time, dev, smi)
+    prob_serving = timed("prob_serving", phase_prob_serving, dev, smi)
     prob_launches["serving"] = prob_serving[False]
     prob_launches["serving_bw"] = prob_serving[True]
-    prob_launches["cli"] = phase_prob_cli(dev, smi)
-    train_launches = phase_train(cfg, dev, smi)
-    cli_launches, cli_inference_launches = phase_cli(dev, smi)
+    prob_launches["cli"] = timed("prob_cli", phase_prob_cli, dev, smi)
+    train_launches = timed("train", phase_train, cfg, dev, smi)
+    cli_launches, cli_inference_launches = timed("cli", phase_cli, dev, smi)
+    elbo_err, elbo_rows, elbo_grad_err, elbo_grad_rows = timed(
+        "elbo_kernels", phase_elbo_kernels, dev, smi)
+    elbo_cli_launches = timed("elbo_cli", phase_elbo_cli, dev, smi)
+    elbo_launches = timed("elbo_train", phase_elbo_train, dev, smi)
+    elbo_launches["cli"] = elbo_cli_launches
+    emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [{
         "name": COST_VOLUME.name,
         "route": "cuda",
         "source": COST_VOLUME.source,
         "replaces": COST_VOLUME.replaces,
         "launches": launches["cost_volume"],
-        "max_abs_err": max(max_err, prob_err),
+        "max_abs_err": max(max_err, prob_err, elbo_err),
         # One 2-frame forward's worth at b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in per_level["b8"]),
         "plain_ms": sum(r["plain_ms"] for r in per_level["b8"]),
@@ -1696,6 +2126,12 @@ def main() -> int:
         # One probabilistic forward's worth at 448x1024 b1 and b2.
         **{f"{what}_{key}": sum(r[what] for r in prob_levels[key])
            for key in prob_levels for what in ("ms", "plain_ms", "bound_ms")},
+        # ELBO training (phases elbo_*): ELBO_STEPS steps of each setup at
+        # 256x448 b4 and train_main's 6 steps and 2 validations; one
+        # forward's worth at the ELBO levels, batch 8 and 16.
+        "launches_elbo": {k: v["cost_volume"] for k, v in elbo_launches.items()},
+        **{f"{what}_{key}": sum(r[what] for r in elbo_rows[key])
+           for key in elbo_rows for what in ("ms", "plain_ms", "bound_ms")},
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",
@@ -1703,7 +2139,7 @@ def main() -> int:
         "replaces": COST_VOLUME_BWD.replaces,
         # TRAIN_STEPS train steps: 8 per step (4 levels x 2 directions).
         "launches": train_launches["cost_volume_bwd"],
-        "max_abs_err": grad_err,
+        "max_abs_err": max(grad_err, elbo_grad_err),
         # One direction's worth at 256x448 b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in grad_rows),
         "plain_ms": sum(r["plain_ms"] for r in grad_rows),
@@ -1711,6 +2147,9 @@ def main() -> int:
         "bound_by": "+".join(sorted({r["bound_by"] for r in grad_rows})),
         "library_ms": None,
         "launches_cli": cli_launches["cost_volume_bwd"],
+        "launches_elbo": {k: v["cost_volume_bwd"] for k, v in elbo_launches.items()},
+        **{f"{what}_{key}": sum(r[what] for r in elbo_grad_rows[key])
+           for key in elbo_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
     }]})
     # The card's name and power limit as nvidia-smi prints them, on a line
     # of their own before the result line.

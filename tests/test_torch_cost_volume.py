@@ -226,7 +226,9 @@ def test_cuda_kernel_matches_plain(shape, md, offset):
     out = compute_cost_volume(f1, f2, md)
     torch.cuda.synchronize()
     assert COST_VOLUME.launches == before + 1
-    # float32 sums over C in another order than the plain version's mean.
+    # The kernel sums in the order of torch's mean at the model's shapes
+    # (test_cuda_kernel_rounds_as_plain_at_level_shapes); at some tiny maps
+    # torch's reduction splits C another way.
     torch.testing.assert_close(out, compute_cost_volume_reference(f1, f2, md),
                                rtol=0, atol=2e-6)
 
@@ -280,3 +282,57 @@ def test_cuda_grad_kernel_matches_plain(shape, md, offset):
     assert none1 is None and none2 is None
     torch.testing.assert_close(only1, a.grad, rtol=0, atol=0)
     torch.testing.assert_close(only2, bb.grad, rtol=0, atol=0)
+
+
+# The ELBO train step's levels at 256x448 (configs/chairs_uflow_elbo.json's
+# crop, b4): both directions on one decoder pass make batch 8, and two
+# pyramids' components (chairs_uflow_elbo_mixture.json) batch 16.
+ELBO_LEVELS = [(b, 32, 256 >> lv, 448 >> lv) for b in (8, 16) for lv in (2, 3, 4, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ELBO_LEVELS)
+def test_cuda_kernels_at_elbo_level_shapes(shape):
+    """Both kernels, launched through the Function, against their plain
+    versions at the ELBO step's level shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, c, h, w = shape
+    f1 = torch.randn(shape, device="cuda", generator=gen)
+    f2 = torch.randn(shape, device="cuda", generator=gen)
+    g = torch.randn((b, 81, h, w), device="cuda", generator=gen)
+    before = (COST_VOLUME.launches, COST_VOLUME_BWD.launches)
+    a, bb = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    out = CostVolume.apply(a, bb, 4)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (COST_VOLUME.launches, COST_VOLUME_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out.detach(), compute_cost_volume_reference(f1, f2, 4),
+                               rtol=0, atol=2e-6)
+    r1, r2 = cost_volume_grad_reference(g, f1, f2, 4)
+    tol = 1e-5 * max(float(r1.abs().max()), float(r2.abs().max()))
+    torch.testing.assert_close(a.grad, r1, rtol=0, atol=tol)
+    torch.testing.assert_close(bb.grad, r2, rtol=0, atol=tol)
+
+
+# The UFlow levels of 384x640 b8 and 448x1024 b1, besides the ELBO ones.
+LEVELS = ELBO_LEVELS + [(8, 32, 384 >> lv, 640 >> lv) for lv in (2, 3, 4, 5)] + [
+    (1, 32, 448 >> lv, 1024 >> lv) for lv in (2, 3, 4, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LEVELS)
+def test_cuda_kernel_rounds_as_plain_at_level_shapes(shape):
+    """At the model's level shapes the forward kernel equals the plain
+    version bit for bit: products rounded, channel c in running sum c mod 4,
+    the four combined in order, times 1/C, as torch's mean reduces there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    f1 = torch.randn(shape, device="cuda", generator=gen)
+    f2 = torch.randn(shape, device="cuda", generator=gen)
+    out = cost_volume_kernel(f1, f2, 4)
+    torch.testing.assert_close(out, compute_cost_volume_reference(f1, f2, 4),
+                               rtol=0, atol=0)

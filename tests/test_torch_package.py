@@ -45,8 +45,9 @@ bad = sorted(m for m in sys.modules
 print(" ".join(names), "|", bad)
 """
 
-# The entry points, the host-side pipeline and the probabilistic path, which
-# no earlier module imported: they must be among the modules checked.
+# The entry points, the host-side pipeline, the probabilistic path and its
+# ELBO training, which no earlier module imported: they must be among the
+# modules checked.
 ENTRY_AND_DATA = [
     "arflow_tpu_torch.cli", "arflow_tpu_torch.data",
     "arflow_tpu_torch.data.datasets", "arflow_tpu_torch.data.get_dataset",
@@ -55,7 +56,9 @@ ENTRY_AND_DATA = [
     "arflow_tpu_torch.utils.logger", "arflow_tpu_torch.utils.summary",
     "arflow_tpu_torch.models.uflow_prob", "arflow_tpu_torch.ops.triag",
     "arflow_tpu_torch.training.entropy", "arflow_tpu_torch.utils.gmm",
-    "arflow_tpu_torch.utils.metrics",
+    "arflow_tpu_torch.utils.metrics", "arflow_tpu_torch.losses.blocks",
+    "arflow_tpu_torch.losses.uflow_elbo", "arflow_tpu_torch.ops.penalties",
+    "arflow_tpu_torch.training.uflow_elbo_trainer",
 ]
 
 
@@ -152,13 +155,16 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     full = Config(full)
     error, match = ((ValueError, "JAX package") if case == "checkpoint_save"
                     else (NotImplementedError, "ROADMAP.md"))
+    trainer_name = "uflow"
+    if case == "trainer_uflow_elbo":  # the ELBO trainer refuses it too
+        trainer_name = "uflow_elbo"
+        full["data"] = [{"type": "train",
+                         "photometric_aug": {"hue": 0.5, "device": True}}]
     with pytest.raises(error, match=match):
-        if case == "loss_uflow_elbo":
-            get_loss(Config({"type": "uflow_elbo"}))
-        if case == "trainer_uflow_elbo":
-            get_trainer("uflow_elbo")
+        if case == "loss_uflow_elbo":  # the opt-in Taylor warp
+            get_loss(Config({"type": "uflow_elbo", "taylor_warp": True}))
         model = get_model(full.model, device="cpu")
-        trainer = get_trainer("uflow")(
+        trainer = get_trainer(trainer_name)(
             [_batch()], valid, model, get_loss(full.loss),
             logging.getLogger("test"), str(tmp_path), full.train,
             model_cfg=full.model, full_cfg=full, **kwargs)

@@ -85,15 +85,18 @@ def test_load_pretrained_strict_round_trip(case, tmp_path):
 
 
 def test_mixture_weights_and_training_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*ELBO training"):
+    """``mixture_weights`` raises and names its roadmap step; training with
+    level dropout needs a generator to draw from."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*MixtureWeightsNet"):
         get_model(Config({"type": "component", "out_channels": [2, 2, 0],
                           "mixture_weights": True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*ELBO training"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*MixtureWeightsNet"):
         uflow_prob_state_dict_from_jax({"feature_pyramid_0": {},
                                         "mixture_weights_net": {}})
-    model = get_model(Config(model_cfg("diag")), device="cpu")
+    model = get_model(Config(dict(model_cfg("diag"), level_dropout=0.5)),
+                      device="cpu")
     img = torch.zeros((1, H, W, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*ELBO training"):
+    with pytest.raises(ValueError, match="Generator"):
         model(img, img, train=True)
 
 
@@ -113,7 +116,7 @@ def test_every_shipped_prob_config_builds():
             continue
         name = os.path.basename(path)
         if cfg.model.get("mixture_weights"):
-            with pytest.raises(NotImplementedError, match="ELBO training"):
+            with pytest.raises(NotImplementedError, match="MixtureWeightsNet"):
                 get_model(cfg.model, device="cpu")
             refused.append(name)
         else:
