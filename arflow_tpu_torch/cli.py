@@ -3,6 +3,7 @@ offline evaluation of its outputs, as ``arflow_tpu/cli.py`` has them.
 
     arflow-torch-train -c configs/chairs_uflow.json [--device cpu]
     arflow-torch-train -c configs/chairs_uflow_elbo.json [--device cpu]
+    arflow-torch-train -c configs/chairs_uflow_mse.json [--device cpu]
     arflow-torch-inference -c cfg.json -m ckpt.pth.tar [--device cpu]
     arflow-torch-evaluate-flo --pred_root out/ --gt_root gt/
     python -m arflow_tpu_torch.cli train|inference|evaluate-flo ...
@@ -180,14 +181,21 @@ def inference_main(cfg, log, device="cuda"):
     JAX package writes it. The ``mixture`` approximation draws its
     Monte-Carlo samples from a generator seeded 0 for each batch, as the
     JAX one does from ``PRNGKey(0)``; the two draw different numbers, so
-    their ``.npy`` differ by Monte-Carlo noise."""
+    their ``.npy`` differ by Monte-Carlo noise.
+
+    The model runs with ``with_bk=False``, so ``mixture_weights`` raises
+    here, before any pair is read, as the JAX ``inference_main`` fails on
+    it at the first pair."""
     from arflow_tpu_torch.data import DataLoader, get_dataset
     from arflow_tpu_torch.models import load_pretrained
+    from arflow_tpu_torch.models.uflow_prob import MIXTURE_NEEDS_BK
     from arflow_tpu_torch.ops.resize import resize_bilinear_np
     from arflow_tpu_torch.training.entropy import extract_uv_entropy
     from arflow_tpu_torch.utils.flow_io import write_flo
     from arflow_tpu_torch.utils.meters import AverageMeter
 
+    if cfg.model.get("mixture_weights"):
+        raise ValueError(f"inference_main: {MIXTURE_NEEDS_BK}")
     dev = resolve_device(device)
     _, valid_set = get_dataset(cfg, seed=cfg.get("seed", 0))
     valid_batch_size = cfg.inference.get("valid_batch_size", 1)

@@ -1,6 +1,8 @@
-"""Loss factory of the port: ``type: "uflow"`` and ``"uflow_elbo"``. The
-other losses raise and name the roadmap item that brings them."""
+"""Loss factory of the port: ``type: "uflow"``, ``"uflow_elbo"`` and
+``"mse"``. The other losses raise and name the roadmap item that brings
+them."""
 
+from arflow_tpu_torch.losses.mse import MseLoss  # noqa: F401
 from arflow_tpu_torch.losses.uflow import UFlowLoss  # noqa: F401
 from arflow_tpu_torch.losses.uflow_elbo import UFlowElboLoss  # noqa: F401
 
@@ -8,7 +10,6 @@ _NOT_PORTED = {
     "unflow": "'the PWC-Lite family'",
     "elbo": "'the PWC-Lite family'",
     "fullres": "'the PWC-Lite family'",
-    "mse": "'the probabilistic UFlow path' (MSE training)",
 }
 
 
@@ -21,6 +22,8 @@ def get_loss(cfg):
         return UFlowLoss(cfg)
     if kind == "uflow_elbo":
         return UFlowElboLoss(cfg)
+    if kind == "mse":
+        return MseLoss(cfg)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"loss type {kind!r} is not ported yet: ROADMAP.md queue 1, "

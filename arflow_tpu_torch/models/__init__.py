@@ -1,7 +1,7 @@
 """Model factory of the port: ``type: "uflow"`` (``PWCFlow``),
 ``"uflow_prob"`` (``PWCProbFlow``) and ``"component"`` (``ComponentNet``),
-in float32. The other families and dtypes, and ``mixture_weights``, raise
-and name the roadmap item that brings them."""
+either with ``mixture_weights``, in float32. The other families and dtypes
+raise and name the roadmap item that brings them."""
 
 from __future__ import annotations
 
@@ -11,9 +11,10 @@ from arflow_tpu_torch.device import resolve_device
 from arflow_tpu_torch.models.layers import init_xavier_uniform
 from arflow_tpu_torch.models.uflow import PWCFeaturePyramid, PWCFlow  # noqa: F401
 from arflow_tpu_torch.models.uflow_prob import (  # noqa: F401
-    MIXTURE_WEIGHTS,
     ComponentNet,
+    MixtureWeightsNet,
     PWCProbFlow,
+    ResNet,
 )
 from arflow_tpu_torch.models.weights import (  # noqa: F401
     component_state_dict_from_jax,
@@ -40,7 +41,8 @@ def _normalize_out_channels(oc) -> tuple:
 def get_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
     """``cfg`` (the config's ``model`` section) -> the model on ``device``,
     its weights drawn from ``torch.Generator().manual_seed(seed)``
-    (xavier-uniform, zero bias), in eval mode. Load trained weights with
+    (xavier-uniform, zero bias; BatchNorm at scale 1, shift 0 and unit
+    running statistics), in eval mode. Load trained weights with
     ``load_state_dict`` or ``load_pretrained``."""
     if cfg.type not in ("uflow", "uflow_prob", "component"):
         item = _NOT_PORTED.get(cfg.type, "model families")
@@ -51,21 +53,16 @@ def get_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
         raise NotImplementedError(
             f"model.dtype {cfg.get('dtype')!r} is not ported yet: ROADMAP.md "
             "queue 1, 'config switches' (model.dtype)")
-    if cfg.type != "uflow" and cfg.get("mixture_weights"):
-        raise NotImplementedError(
-            f"model.mixture_weights (MixtureWeightsNet) is not ported yet: "
-            f"{MIXTURE_WEIGHTS}")
     dev = resolve_device(device)
     common = dict(feature_norm=cfg.get("feature_norm", True),
                   level_dropout=cfg.get("level_dropout", 0.0))
     if cfg.type == "uflow":
         model = PWCFlow(**common)
-    elif cfg.type == "uflow_prob":
-        model = PWCProbFlow(
-            out_channels=_normalize_out_channels(cfg.out_channels),
-            inv_cov=cfg.get("inv_cov", False),
-            n_pyramids=cfg.get("n_pyramids", 1), **common)
     else:
-        model = ComponentNet(inv_cov=cfg.get("inv_cov", False), **common)
+        cls = PWCProbFlow if cfg.type == "uflow_prob" else ComponentNet
+        model = cls(out_channels=_normalize_out_channels(cfg.out_channels),
+                    inv_cov=cfg.get("inv_cov", False),
+                    n_pyramids=cfg.get("n_pyramids", 1),
+                    mixture_weights=cfg.get("mixture_weights", False), **common)
     init_xavier_uniform(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -34,10 +34,11 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = LEAKY_ALPHA
 
 @torch.no_grad()
 def init_xavier_uniform(module: nn.Module, generator: torch.Generator) -> None:
-    """Xavier-uniform weights and zero biases for every (transposed) conv,
-    in module order, drawn from ``generator`` (the UFlow init)."""
+    """Xavier-uniform weights and zero biases for every (transposed) conv
+    and linear layer, in module order, drawn from ``generator`` (the UFlow
+    init)."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             nn.init.xavier_uniform_(m.weight, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()

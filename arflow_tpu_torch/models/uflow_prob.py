@@ -13,15 +13,23 @@ pyramids share one decoder and their outputs are concatenated groupwise:
 ``ComponentNet`` is two ``PWCProbFlow((2, 2, 0))`` nets whose outputs form a
 2-component mixture.
 
+With ``mixture_weights`` either model adds ``MixtureWeightsNet``: a
+ResNet-18-shaped classifier over per-pixel census and smoothness maps of
+the level-2 means that predicts per-image component weights,
+``res["weights_fw"]`` from (fw, bw, img1, img2) and ``res["weights_bw"]``
+from (bw, fw, img2, img1), in that order. It reads both directions, so
+``with_bk=False`` raises. Its BatchNorm follows the forward's ``train=``
+as flax's ``use_running_average=not train`` does, with flax's statistics
+(``FlaxBatchNorm2d``).
+
 Only the gates-off math is ported: none of the JAX package's TPU relayouts
 (H-fold decoder, split decoder, subpixel deconv, refinement fold). The K
 components and both directions ride the batch axis through one decoder
 pass, which keeps each sample's math. ``forward(train=True)`` turns level
 dropout on: at each level and at the refinement, each (component,
 direction) group of that pass draws its own whole-level keep from the
-``generator``, as the JAX model's ``num_groups`` draws do.
-``MixtureWeightsNet`` is not ported yet; ``get_model`` refuses
-``mixture_weights``. Module and ``state_dict`` keys are the reference's.
+``generator``, as the JAX model's ``num_groups`` draws do. Module and
+``state_dict`` keys are the reference's.
 
 Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
 """
@@ -54,14 +62,17 @@ from arflow_tpu_torch.models.uflow import (
 )
 from arflow_tpu_torch.ops import (
     compute_cost_volume,
+    downsample,
     flow_to_warp,
     normalize_features,
     resample,
     upsample,
 )
 
-MIXTURE_WEIGHTS = ("ROADMAP.md queue 1, 'the probabilistic UFlow path' "
-                   "(MixtureWeightsNet)")
+RESNET_LEAKY_ALPHA = 0.01
+MIXTURE_NEEDS_BK = ("mixture_weights needs with_bk=True: MixtureWeightsNet "
+                    "reads the backward flows (the JAX model raises a KeyError "
+                    "there)")
 
 
 def _pad_channels(x: torch.Tensor, channels: int) -> torch.Tensor:
@@ -74,7 +85,7 @@ class PWCProbFlow(nn.Module):
 
     def __init__(self, out_channels=(2, 2, 0), inv_cov: bool = False,
                  n_pyramids: int = 1, feature_norm: bool = True,
-                 level_dropout: float = 0.0):
+                 level_dropout: float = 0.0, mixture_weights: bool = False):
         super().__init__()
         self.out_channels = tuple(int(c) for c in out_channels)
         self.inv_cov = inv_cov
@@ -115,6 +126,9 @@ class PWCProbFlow(nn.Module):
             cin = c
         refine.append(conv2d(cin, sum(self.out_channels)))
         self._refine_model = nn.Sequential(*refine)
+        self.mixture_weights = mixture_weights
+        if mixture_weights:
+            self._mixture_weights_net = MixtureWeightsNet(l_ch // 2, n_pyramids)
 
     def feature_pyramids(self, img: torch.Tensor) -> list:
         """NCHW image in [0, 1] -> one per-level feature list per pyramid."""
@@ -227,11 +241,15 @@ class PWCProbFlow(nn.Module):
                 with_bk: bool = True, train: bool = False,
                 generator: torch.Generator | None = None) -> dict:
         """Images NHWC (B,H,W,3) in [0, 1] -> {'flows_fw'[, 'flows_bw']},
-        each 6 NHWC outputs, finest first.
+        each 6 NHWC outputs, finest first; with ``mixture_weights`` also
+        'weights_fw' and 'weights_bw', (B, K) each.
 
         ``train=True`` turns level dropout on; it draws from ``generator``,
         which it then needs unless ``level_dropout`` is 0: at each of the 4
-        levels and the refinement, one draw per (component, direction)."""
+        levels and the refinement, one draw per (component, direction).
+        It also puts the mixture weights net's BatchNorm in training mode."""
+        if self.mixture_weights and not with_bk:
+            raise ValueError(MIXTURE_NEEDS_BK)
         if train and self.level_dropout > 0:
             if generator is None:
                 raise ValueError("PWCProbFlow(train=True) with level_dropout "
@@ -250,7 +268,11 @@ class PWCProbFlow(nn.Module):
         else:
             res = {"flows_fw": self.flows_cat(
                 self._decode_groups(fp1, fp2, generator))}
-        return {key: [to_nhwc(f) for f in flows] for key, flows in res.items()}
+        res = {key: [to_nhwc(f) for f in flows] for key, flows in res.items()}
+        if self.mixture_weights:
+            add_mixture_weights(self._mixture_weights_net, res,
+                                self.out_channels[0] * k, img1, img2, train)
+        return res
 
 
 class ComponentNet(nn.Module):
@@ -258,23 +280,192 @@ class ComponentNet(nn.Module):
     level [mean 1, mean 2, log-diagonal 1, log-diagonal 2]."""
 
     def __init__(self, inv_cov: bool = False, feature_norm: bool = True,
-                 level_dropout: float = 0.0):
+                 level_dropout: float = 0.0, out_channels=(2, 2, 0),
+                 n_pyramids: int = 1, mixture_weights: bool = False):
         super().__init__()
         kwargs = dict(out_channels=(2, 2, 0), inv_cov=inv_cov,
                       feature_norm=feature_norm, level_dropout=level_dropout)
         self.pwcnet1 = PWCProbFlow(**kwargs)
         self.pwcnet2 = PWCProbFlow(**kwargs)
+        # As in the JAX model, ``out_channels`` and ``n_pyramids`` size only
+        # the weights net (K = out_channels[0] // 2 * n_pyramids) and how
+        # many mean channels of level 2 it reads; the two nets are fixed.
+        self.mixture_weights = mixture_weights
+        self._means = int(out_channels[0]) * n_pyramids
+        if mixture_weights:
+            self.mixture_weights_net = MixtureWeightsNet(
+                int(out_channels[0]) // 2, n_pyramids)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor,
                 with_bk: bool = True, train: bool = False,
                 generator: torch.Generator | None = None) -> dict:
         """As ``PWCProbFlow.forward``; the second net draws its level
         dropout after the first."""
+        if self.mixture_weights and not with_bk:
+            raise ValueError(MIXTURE_NEEDS_BK)
         res1 = self.pwcnet1(img1, img2, with_bk=with_bk, train=train,
                             generator=generator)
         res2 = self.pwcnet2(img1, img2, with_bk=with_bk, train=train,
                             generator=generator)
-        return {key: [torch.cat([a[..., 0:2], b[..., 0:2], a[..., 2:4],
-                                 b[..., 2:4]], dim=-1)
-                      for a, b in zip(res1[key], res2[key])]
-                for key in res1}
+        res = {key: [torch.cat([a[..., 0:2], b[..., 0:2], a[..., 2:4],
+                                b[..., 2:4]], dim=-1)
+                     for a, b in zip(res1[key], res2[key])]
+               for key in res1}
+        if self.mixture_weights:
+            add_mixture_weights(self.mixture_weights_net, res, self._means,
+                                img1, img2, train)
+        return res
+
+
+def add_mixture_weights(net, res: dict, means: int, img1, img2, train: bool):
+    """``res["weights_fw"]`` from the first ``means`` channels of both
+    directions' level-2 outputs and (img1, img2), then ``res["weights_bw"]``
+    with the directions and images swapped: the JAX model's order, in which
+    the BatchNorm's running statistics update."""
+    mean12_2 = res["flows_fw"][2][..., :means]
+    mean21_2 = res["flows_bw"][2][..., :means]
+    res["weights_fw"] = net(mean12_2, mean21_2, img1, img2, train=train)
+    res["weights_bw"] = net(mean21_2, mean12_2, img2, img1, train=train)
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``flax.linen.BatchNorm(momentum=0.9)`` over NCHW channels, with the
+    ``nn.BatchNorm2d`` parameters and buffers (the reference's keys).
+
+    The mode is the ``train`` argument, not ``nn.Module.training``. In
+    training it normalizes with the batch's mean and biased variance, and
+    updates ``running_mean`` / ``running_var`` by 0.9 old + 0.1 batch with
+    the *biased* variance, as flax does (``nn.BatchNorm2d`` takes the
+    unbiased one there, n/(n-1) larger); otherwise it normalizes with the
+    running statistics. ``num_batches_tracked`` counts as in torch and is
+    read by nothing."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+def conv_bn(pair: nn.Sequential, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """A (conv, ``FlaxBatchNorm2d``) pair applied in ``train`` mode."""
+    return pair[1](pair[0](x), train)
+
+
+class ResidualBlock(nn.Module):
+    """Conv-BN-leaky ReLU, conv-BN, plus the input (a strided 1x1 conv and
+    BN where the shape changes), leaky ReLU 0.01."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Sequential(
+            nn.Conv2d(cin, features, 3, stride=stride, padding=1, bias=False),
+            FlaxBatchNorm2d(features))
+        self.conv2 = nn.Sequential(
+            nn.Conv2d(features, features, 3, padding=1, bias=False),
+            FlaxBatchNorm2d(features))
+        self.downsample = None
+        if stride != 1 or cin != features:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, features, 1, stride=stride),
+                FlaxBatchNorm2d(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.leaky_relu(conv_bn(self.conv1, x, train), RESNET_LEAKY_ALPHA)
+        y = conv_bn(self.conv2, y, train)
+        residual = x if self.downsample is None else conv_bn(self.downsample, x, train)
+        return F.leaky_relu(y + residual, RESNET_LEAKY_ALPHA)
+
+
+class ResNet(nn.Module):
+    """ResNet-18-shaped classifier, NCHW in: a 7x7 stride-2 stem with BN and
+    leaky ReLU, a 3x3 stride-2 max pool, four stages of ``layers`` residual
+    blocks (64, 128, 256, 512 channels; stride 1, 2, 2, 2), the spatial
+    mean and ``fc``."""
+
+    def __init__(self, cin: int, num_classes: int, layers=(2, 2, 2, 2)):
+        super().__init__()
+        self.conv1 = nn.Sequential(
+            nn.Conv2d(cin, 64, 7, stride=2, padding=3, bias=False),
+            FlaxBatchNorm2d(64))
+        cin = 64
+        for stage, (planes, blocks, stride) in enumerate(
+                zip((64, 128, 256, 512), layers, (1, 2, 2, 2))):
+            setattr(self, f"layer{stage}", nn.ModuleList(
+                ResidualBlock(cin if blk == 0 else planes, planes,
+                              stride if blk == 0 else 1)
+                for blk in range(blocks)))
+            cin = planes
+        self.num_stages = len(layers)
+        self.fc = nn.Linear(512, num_classes)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = F.leaky_relu(conv_bn(self.conv1, x, train), RESNET_LEAKY_ALPHA)
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for stage in range(self.num_stages):
+            for block in getattr(self, f"layer{stage}"):
+                x = block(x, train)
+        return self.fc(x.mean(dim=(2, 3)))
+
+
+class MixtureWeightsNet(nn.Module):
+    """Per-image mixture weights (B, K), K = ``n_flows * n_pyramids``, from
+    per-pixel loss maps of the K level-2 flows of each direction.
+
+    Each flow pair becomes a batch entry, batch-major (image b's K flows
+    side by side), with its images repeated to match; the census data loss
+    and its weight (occlusion 'none', downsampled 4x to level 2) and the
+    edge-aware smoothness terms (zero-padded back to the level-2 size)
+    stack as 8 channels per flow into the ResNet, and a softmax over its K
+    outputs gives the weights. Both are the JAX package's documented fixes
+    of the reference: the first two of ``data_loss_no_penalty``'s four
+    return values, and the batch-major pairing. Nothing is detached beyond
+    what those blocks detach, so the gradient reaches the flow network
+    through the flows."""
+
+    def __init__(self, n_flows: int = 1, n_pyramids: int = 1):
+        super().__init__()
+        self.k = n_flows * n_pyramids
+        self.resnet = ResNet(8 * self.k, self.k)
+
+    def forward(self, flow12_2, flow21_2, im1_0, im2_0, train: bool = False):
+        """Level-2 flows NHWC (B, h, w, 2K), images NHWC (B, H, W, 3)."""
+        from arflow_tpu_torch.losses.blocks import (
+            data_loss_no_penalty,
+            smooth_loss_no_penalty,
+        )
+        k = self.k
+        b, h, w, _ = flow12_2.shape
+
+        def as_batch(f):  # (B, h, w, 2K) -> (B*K, h, w, 2), batch-major
+            return f.reshape(b, h, w, k, 2).permute(0, 3, 1, 2, 4).reshape(
+                b * k, h, w, 2)
+
+        f12, f21 = as_batch(flow12_2), as_batch(flow21_2)
+        im1 = im1_0.repeat_interleave(k, dim=0)
+        im2 = im2_0.repeat_interleave(k, dim=0)
+        data_loss, data_weight, _, _ = data_loss_no_penalty(
+            im1, im2, f12, f21, "none", ["census"])
+        data_loss, data_weight = (
+            downsample(to_nchw(t[0]), is_flow=False, scale_factor=4)
+            for t in (data_loss, data_weight))
+        s_x, w_x, s_y, w_y = (to_nchw(t) for t in smooth_loss_no_penalty(
+            im1, f12, 150.0, edge_asymp=0.01))
+        s_x, w_x = F.pad(s_x, (1, 0)), F.pad(w_x, (1, 0))
+        s_y, w_y = F.pad(s_y, (0, 0, 1, 0)), F.pad(w_y, (0, 0, 1, 0))
+
+        def as_channels(t):  # (B*K, ch, h, w) -> (B, K*ch, h, w)
+            return t.reshape(b, k * t.shape[1], h, w)
+
+        x = torch.cat([as_channels(t) for t in
+                       (data_loss, data_weight, s_x, s_y, w_x, w_y)], dim=1)
+        return torch.softmax(self.resnet(x, train=train), dim=-1)

@@ -3,15 +3,18 @@
 ``uflow_state_dict_from_jax``, ``uflow_prob_state_dict_from_jax`` and
 ``component_state_dict_from_jax`` are the port's own copies of
 ``arflow_tpu/models/torch_export.py:export_uflow``, ``export_uflow_prob``
-and ``export_component_net`` (without the ``MixtureWeightsNet`` ResNet,
-which is not ported yet): they turn a JAX parameter tree (a nested dict of
-arrays, handed over as numpy) into this package's ``state_dict``:
+and ``export_component_net``: they turn a JAX variable tree (a nested dict
+of arrays, handed over as numpy) into this package's ``state_dict``:
 
-- conv kernels HWIO -> OIHW;
+- conv kernels HWIO -> OIHW, dense kernels transposed;
 - deconv kernels, stored pre-flipped in the JAX package: un-flip, then
   (kh, kw, I, O) -> (I, O, kh, kw);
 - a zero ``_context_up_layers.0``, the deconv that the reference builds and
-  never applies.
+  never applies;
+- the ``MixtureWeightsNet`` ResNet's BatchNorm scale and bias as
+  ``weight`` / ``bias``, its ``batch_stats`` mean and var as
+  ``running_mean`` / ``running_var``, and a zero int64
+  ``num_batches_tracked``.
 
 ``load_pretrained`` reads a reference-format ``.pth(.tar)``, the format that
 ``arflow-to-torch`` writes from a JAX checkpoint, with ``strict=True``.
@@ -23,7 +26,6 @@ import numpy as np
 import torch
 
 from arflow_tpu_torch.device import resolve_device
-from arflow_tpu_torch.models.uflow_prob import MIXTURE_WEIGHTS
 
 
 def _np(a) -> np.ndarray:
@@ -61,6 +63,10 @@ def _params(variables) -> dict:
     """The parameter tree of bare params, ``{'params'}`` or ``{'params',
     'batch_stats'}``."""
     return variables["params"] if "params" in variables else variables
+
+
+def _batch_stats(variables) -> dict:
+    return variables.get("batch_stats", {}) if "params" in variables else {}
 
 
 def _pyramid_from_jax(sd, pyr, prefix):
@@ -112,14 +118,43 @@ def uflow_state_dict_from_jax(params) -> dict:
     return _tensors(sd)
 
 
-def _refuse_mixture_weights(params):
+def _put_bn(sd, name, p, s):
+    sd[f"{name}.weight"] = _np(p["scale"])
+    sd[f"{name}.bias"] = _np(p["bias"])
+    sd[f"{name}.running_mean"] = _np(s["mean"])
+    sd[f"{name}.running_var"] = _np(s["var"])
+    sd[f"{name}.num_batches_tracked"] = np.zeros((), dtype=np.int64)
+
+
+def _resnet_from_jax(sd, params, stats, prefix):
+    """``MixtureWeightsNet``'s ResNet: params and ``batch_stats`` of its
+    ``resnet`` scope -> ``{prefix}.conv1.{0,1}``,
+    ``{prefix}.layer{s}.{b}.conv{1,2}.{0,1}`` / ``.downsample.{0,1}`` and
+    ``{prefix}.fc``."""
+    sd[f"{prefix}.conv1.0.weight"] = conv_kernel_from_jax(params["conv1"]["kernel"])
+    _put_bn(sd, f"{prefix}.conv1.1", params["bn1"], stats["bn1"])
+    for name, p in params.items():
+        if not name.startswith("layer"):
+            continue
+        stage, blk = name[len("layer"):].split("_block")
+        tp, s = f"{prefix}.layer{stage}.{blk}", stats[name]
+        for i in (1, 2):
+            sd[f"{tp}.conv{i}.0.weight"] = conv_kernel_from_jax(p[f"conv{i}"]["kernel"])
+            _put_bn(sd, f"{tp}.conv{i}.1", p[f"bn{i}"], s[f"bn{i}"])
+        if "downsample_conv" in p:
+            _put(sd, f"{tp}.downsample.0", p["downsample_conv"], conv_kernel_from_jax)
+            _put_bn(sd, f"{tp}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+    sd[f"{prefix}.fc.weight"] = np.ascontiguousarray(_np(params["fc"]["kernel"]).T)
+    sd[f"{prefix}.fc.bias"] = _np(params["fc"]["bias"])
+
+
+def _mixture_from_jax(sd, params, stats, prefix):
     if "mixture_weights_net" in params:
-        raise NotImplementedError(
-            f"MixtureWeightsNet weights are not ported yet: {MIXTURE_WEIGHTS}")
+        _resnet_from_jax(sd, params["mixture_weights_net"]["resnet"],
+                         stats["mixture_weights_net"]["resnet"], prefix)
 
 
 def _prob_state_dict(params) -> dict:
-    _refuse_mixture_weights(params)
     sd = {}
     k = 0
     while f"feature_pyramid_{k}" in params:
@@ -131,19 +166,28 @@ def _prob_state_dict(params) -> dict:
 
 
 def uflow_prob_state_dict_from_jax(variables) -> dict:
-    """JAX ``PWCProbFlow`` variables -> this package's ``PWCProbFlow``
-    state_dict: pyramid k under ``_feature_pyramid_extractor.{k}``, the
-    decoder as ``PWCFlow``'s."""
-    return _tensors(_prob_state_dict(_params(variables)))
+    """JAX ``PWCProbFlow`` variables (bare params, ``{'params'}``, or with
+    ``'batch_stats'`` for ``mixture_weights``) -> this package's
+    ``PWCProbFlow`` state_dict: pyramid k under
+    ``_feature_pyramid_extractor.{k}``, the decoder as ``PWCFlow``'s, the
+    weights net under ``_mixture_weights_net.resnet.``."""
+    params = _params(variables)
+    sd = _prob_state_dict(params)
+    _mixture_from_jax(sd, params, _batch_stats(variables),
+                      "_mixture_weights_net.resnet")
+    return _tensors(sd)
 
 
 def component_state_dict_from_jax(variables) -> dict:
     """JAX ``ComponentNet`` variables -> this package's ``ComponentNet``
-    state_dict: each net's keys under ``pwcnet1.`` / ``pwcnet2.``."""
+    state_dict: each net's keys under ``pwcnet1.`` / ``pwcnet2.``, the
+    weights net under ``mixture_weights_net.resnet.``."""
     params = _params(variables)
-    _refuse_mixture_weights(params)
-    return _tensors({f"{net}.{key}": v for net in ("pwcnet1", "pwcnet2")
-                     for key, v in _prob_state_dict(params[net]).items()})
+    sd = {f"{net}.{key}": v for net in ("pwcnet1", "pwcnet2")
+          for key, v in _prob_state_dict(params[net]).items()}
+    _mixture_from_jax(sd, params, _batch_stats(variables),
+                      "mixture_weights_net.resnet")
+    return _tensors(sd)
 
 
 def load_pretrained(path: str, model_cfg, device="cuda"):

@@ -19,6 +19,7 @@ from arflow_tpu_torch.ops.resize import (  # noqa: F401
     downsample,
     image_grads,
     resize_bilinear,
+    resize_flow,
     upsample,
 )
 from arflow_tpu_torch.ops.warp import (  # noqa: F401

@@ -71,13 +71,25 @@ def resize_bilinear_np(inputs: np.ndarray, out_hw) -> np.ndarray:
     return out.astype(dt)
 
 
-def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear, align_corners=False (the UFlow pyramid convention)."""
+def resize_bilinear(img: torch.Tensor, out_hw, align_corners: bool = False
+                    ) -> torch.Tensor:
+    """Bilinear; align_corners=False is the UFlow pyramid convention."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (oh, ow) == tuple(img.shape[-2:]):
         return img
     return F.interpolate(img, size=(oh, ow), mode="bilinear",
-                         align_corners=False)
+                         align_corners=align_corners)
+
+
+def resize_flow(flow: torch.Tensor, new_shape, align_corners: bool = False
+                ) -> torch.Tensor:
+    """A (B, 2, H, W) flow resized to ``new_shape``, its u scaled by the
+    width's ratio and v by the height's."""
+    h, w = flow.shape[-2:]
+    nh, nw = int(new_shape[0]), int(new_shape[1])
+    out = resize_bilinear(flow, (nh, nw), align_corners)
+    scale = torch.tensor([nw / w, nh / h], dtype=flow.dtype, device=flow.device)
+    return out * scale.view(1, 2, 1, 1)
 
 
 def upsample(img: torch.Tensor, is_flow: bool, scale_factor: float = 2.0

@@ -1,5 +1,6 @@
-"""Banded triangular solves over the image lattice (port of the inference
-part of ``arflow_tpu/ops/triag.py``).
+"""Banded triangular solves over the image lattice and their adjoints
+(port of ``arflow_tpu/ops/triag.py`` but its natural-gradient identities
+and ``inverse_l1norm``).
 
 The lower-triangular matrix L couples each pixel to its left (B), upper (C)
 and upper-left (D) neighbours, besides itself (A). Tensors are NHWC with
@@ -13,14 +14,17 @@ whole (..., M) slices. The JAX package writes this as a ``lax.scan`` in
 XLA, not Pallas, so here it is plain PyTorch, one Python step per
 diagonal.
 
+``forward_substitution`` (L y = x) and ``backward_substitution``
+(L^T y = x) are ``torch.autograd.Function``s with the JAX package's
+analytic adjoints: the gradient of x is one solve of the other triangle on
+the incoming gradient, dx, and each band's gradient is -dx * y on that
+band's shifted slices. Their only user in training is the ``inv_cov``
+posterior of ``MseLoss``, which samples with ``backward_substitution``.
+
 The banded products ``matrix_vector_product*`` (y = L x and y = L^T x,
 the general ones with k-support bands) are plain tensor ops that autograd
-differentiates. The ``sparse`` ELBO posterior calls only
-``matrix_vector_product_general``; the other three are ported with it as
-one set, for MSE training (``arflow_tpu/losses/mse.py`` and the natural
-gradient call them), and the tests hold all four to ``arflow_tpu``. The
-solves are values only: their analytic adjoints, the natural-gradient
-identities and ``inverse_l1norm`` come with MSE training.
+differentiates: the ``sparse`` ELBO posterior calls the general one, and
+``MseLoss`` the other two.
 """
 
 from __future__ import annotations
@@ -146,8 +150,8 @@ def _to_bcmn(t):
     return t.permute(0, 3, 1, 2)
 
 
-def forward_substitution(a, b, c, d, x):
-    """Solve L y = x (lower-triangular, banded), NHWC."""
+def _lower_solve(a, b, c, d, x):
+    """L y = x by the wavefront, NHWC."""
     a, b, c, d, x = (_to_bcmn(t) for t in (a, b, c, d, x))
     m, n = x.shape[-2:]
     x_sk = _skew(x, m + n - 1)
@@ -155,12 +159,53 @@ def forward_substitution(a, b, c, d, x):
     return _unskew(torch.stack(diags, dim=-1), m, n).permute(0, 2, 3, 1)
 
 
+def _upper_solve(a, b, c, d, x):
+    """L^T y = x: the lower solve on the lattice flipped along both axes."""
+    flip = lambda t: t.flip(1, 2)  # noqa: E731
+    return flip(_lower_solve(*(flip(t) for t in (a, b, c, d, x))))
+
+
+class _ForwardSubstitution(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c, d, x):
+        y = _lower_solve(a, b, c, d, x)
+        ctx.save_for_backward(a, b, c, d, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, c, d, y = ctx.saved_tensors
+        dx = _upper_solve(a, b, c, d, dy)
+        return (-dx * y, -dx[:, :, 1:] * y[:, :, :-1], -dx[:, 1:] * y[:, :-1],
+                -dx[:, 1:, 1:] * y[:, :-1, :-1], dx)
+
+
+class _BackwardSubstitution(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c, d, x):
+        y = _upper_solve(a, b, c, d, x)
+        ctx.save_for_backward(a, b, c, d, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, c, d, y = ctx.saved_tensors
+        dx = _lower_solve(a, b, c, d, dy)
+        return (-dx * y, -dx[:, :, :-1] * y[:, :, 1:], -dx[:, :-1] * y[:, 1:],
+                -dx[:, :-1, :-1] * y[:, 1:, 1:], dx)
+
+
+def forward_substitution(a, b, c, d, x):
+    """Solve L y = x (lower-triangular, banded), NHWC: A (B,M,N,C), B
+    (B,M,N-1,C), C (B,M-1,N,C), D (B,M-1,N-1,C), x (B,M,N,C). Autograd
+    takes the analytic adjoint."""
+    return _ForwardSubstitution.apply(a, b, c, d, x)
+
+
 def backward_substitution(a, b, c, d, x):
     """Solve L^T y = x (upper-triangular: B couples the right neighbour, C
-    the one below), NHWC: the lower solve on the lattice flipped along both
-    axes."""
-    flip = lambda t: t.flip(1, 2)  # noqa: E731
-    return flip(forward_substitution(*(flip(t) for t in (a, b, c, d, x))))
+    the one below), NHWC, with the analytic adjoint."""
+    return _BackwardSubstitution.apply(a, b, c, d, x)
 
 
 def inverse_diagonal(a, b, c, d=None, chunk: int = 1 << 15):

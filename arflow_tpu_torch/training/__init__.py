@@ -1,13 +1,7 @@
-"""Training of the port: the optimizer and the ``uflow`` and ``uflow_elbo``
-trainers. The other trainers raise and name the roadmap item that brings
-them."""
+"""Training of the port: the optimizer and the ``uflow``, ``uflow_elbo``
+and ``mse`` (``ChairsMse``) trainers."""
 
 from arflow_tpu_torch.training.optim import create_optimizer  # noqa: F401
-
-_NOT_PORTED = {
-    "mse": "'the probabilistic UFlow path' (MSE training)",
-    "ChairsMse": "'the probabilistic UFlow path' (MSE training)",
-}
 
 
 def get_trainer(name: str):
@@ -19,8 +13,8 @@ def get_trainer(name: str):
         from arflow_tpu_torch.training.uflow_elbo_trainer import UFlowElboTrainer
 
         return UFlowElboTrainer
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"trainer {name!r} is not ported yet: ROADMAP.md queue 1, "
-            f"{_NOT_PORTED[name]}")
+    if name in ("mse", "ChairsMse"):
+        from arflow_tpu_torch.training.mse_trainer import MseTrainer
+
+        return MseTrainer
     raise NotImplementedError(name)

@@ -126,8 +126,13 @@ class BaseTrainer:
         raise NotImplementedError
 
     def _valid_freq(self) -> int:
-        """Validate after every this many epochs."""
-        return self.cfg.valid_freq
+        """Validate after every this many epochs: ``valid_freq``, or
+        ``val_epoch_size`` where a config names it so (the lowrank,
+        mixture, gmm and non-diagonal ELBO configs and both MSE configs;
+        the JAX trainer reads only ``valid_freq`` and fails on them)."""
+        if "valid_freq" in self.cfg:
+            return self.cfg.valid_freq
+        return self.cfg.val_epoch_size
 
     # -- main loop ------------------------------------------------------------
 

@@ -44,13 +44,6 @@ METRIC_KEYS = ("total", "l_ph", "l_sm", "entropy", "l_oof")
 class UFlowElboTrainer(UFlowTrainer):
     KEY_METERS = ["Loss", "l_ph", "l_sm", "entropy", "l_oof"]
 
-    def _valid_freq(self) -> int:
-        # chairs_uflow_elbo_lowrank.json names the period val_epoch_size.
-        # The JAX trainer reads only valid_freq, and fails on that config.
-        if "valid_freq" in self.cfg:
-            return self.cfg.valid_freq
-        return self.cfg.val_epoch_size
-
     def _batch_inputs(self, data) -> list:
         return [self._to_device(data[k]) for k in ("img1", "img2")]
 

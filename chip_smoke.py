@@ -18,7 +18,11 @@ on a Sintel-format tree; and ELBO training of that model: both kernels
 at the ELBO step's level shapes, one step of four shipped ELBO setups
 against the plain cost volume and float64, steps through
 ``UFlowElboTrainer``, and ``train_main`` with chairs_uflow_elbo.json with
-validation, a resume and an overfit check. It checks the outputs, and
+validation, a resume and an overfit check; training of the mixture
+weights net (chairs_uflow_elbo_mixture.json) and supervised MSE training
+(chairs_uflow_mse.json at 384x512 b16): one step each against the plain
+cost volume and float64, steps through their trainers, ``train_main`` with
+a resume, the triangular solve's time. It checks the outputs, and
 times the kernels, the forwards, the streams, the train steps and the
 entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
@@ -61,6 +65,7 @@ from arflow_tpu_torch.data import Chairs, ConcatDataset
 from arflow_tpu_torch.data.loader import DataLoader
 from arflow_tpu_torch.losses import get_loss
 from arflow_tpu_torch.losses import blocks as elbo_blocks_module
+from arflow_tpu_torch.losses import mse as mse_loss_module
 from arflow_tpu_torch.losses import uflow as uflow_loss_module
 from arflow_tpu_torch.models import get_model, load_pretrained
 from arflow_tpu_torch.models import uflow as uflow_module
@@ -77,12 +82,13 @@ from arflow_tpu_torch.ops.cuda.cost_volume import (
     cost_volume_grad_reference,
     cost_volume_kernel,
 )
-from arflow_tpu_torch.ops.triag import inverse_diagonal
+from arflow_tpu_torch.ops.triag import backward_substitution, inverse_diagonal
 from arflow_tpu_torch.serving import StreamingFlowEngine
 from arflow_tpu_torch.training import get_trainer
 from arflow_tpu_torch.training.checkpoint import load_checkpoint
 from arflow_tpu_torch.training.entropy import extract_uv_entropy
 from arflow_tpu_torch.training.trainer import BaseTrainer
+from arflow_tpu_torch.training.mse_trainer import MseTrainer
 from arflow_tpu_torch.training.uflow_elbo_trainer import UFlowElboTrainer
 from arflow_tpu_torch.training.uflow_trainer import UFlowTrainer
 from arflow_tpu_torch.utils.flow_io import read_flo, write_flo
@@ -130,6 +136,9 @@ FLOW_RTOL = 1e-4
 # tolerances below.
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
+# The mixture weights net's BatchNorm running statistics after that step,
+# kernel model against plain model (relative L2 per buffer).
+BN_STATS_RTOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -632,10 +641,10 @@ class RecordingTrainer(UFlowTrainer):
         super()._queue_step_metrics(metrics, *args)
 
 
-def census_range(fn):
-    """``fn`` inside a profiler range named ``census_loss``."""
+def named_range(name, fn):
+    """``fn`` inside a profiler range named ``name``."""
     def wrapped(*args, **kwargs):
-        with torch.profiler.record_function("census_loss"):
+        with torch.profiler.record_function(name):
             return fn(*args, **kwargs)
     return wrapped
 
@@ -775,11 +784,14 @@ def phase_train(cfg, dev, smi):
 
 
 def train_step_profile(one_step, ms,
-                       census=(uflow_loss_module, "census_loss")) -> dict:
+                       census=(uflow_loss_module, "census_loss"),
+                       ranges=None, extra_groups=None) -> dict:
     """``profile_window`` over 3 train steps, with the device time of the
     convolutions (forward, backward), the census forward (the function
     ``census`` names, in its module), the range map and the
-    ``grid_sample`` backward."""
+    ``grid_sample`` backward; of each function of ``ranges`` ({label:
+    (module, name)}), called in a profiler range of that label; and of
+    the events of ``extra_groups``."""
     groups = {
         "conv_fwd": ("aten::cudnn_convolution",
                      "aten::cudnn_convolution_transpose"),
@@ -791,8 +803,15 @@ def train_step_profile(one_step, ms,
         "grid_sample_bwd": ("aten::cudnn_grid_sampler_backward",
                             "aten::grid_sampler_2d_backward"),
     }
-    module, name = census
-    with mock.patch.object(module, name, census_range(getattr(module, name))):
+    wrap = {"census_loss": census} if census else {}
+    for label, target in (ranges or {}).items():
+        groups[label] = (label,)
+        wrap[label] = target
+    groups.update(extra_groups or {})
+    with contextlib.ExitStack() as stack:
+        for label, (module, name) in wrap.items():
+            stack.enter_context(mock.patch.object(
+                module, name, named_range(label, getattr(module, name))))
         return profile_window(one_step, 3, ms, groups)
 
 
@@ -804,13 +823,13 @@ def write_ppm(path, img) -> None:
         f.write(np.ascontiguousarray(img).tobytes())
 
 
-def write_chairs_dir(root, dev) -> int:
-    """CLI_PAIRS FlyingChairs-format pairs at CH x CW in ``root``: img1 a
+def write_chairs_dir(root, dev, pairs=CLI_PAIRS) -> int:
+    """``pairs`` FlyingChairs-format pairs at CH x CW in ``root``: img1 a
     smooth seeded texture, img2 the same texture moved by a per-pair
     (dy, dx) in [-4, 4], and the .flo that shift, (u, v) = (dx, dy).
     Returns the bytes written."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    for fid in range(1, CLI_PAIRS + 1):
+    for fid in range(1, pairs + 1):
         dy, dx = (3 * fid) % 9 - 4, (5 * fid) % 9 - 4
         pair = shifted_pair(1, CH, CW, dy, dx, gen, dev)
         for i, img in enumerate(pair, 1):
@@ -1253,7 +1272,9 @@ PH, PW = 448, 1024
 PB = 8  # the batch of the timing cell
 SH, SW = 436, 1024
 # Each model setup of a shipped config: (key, config, model overrides).
-# (e) runs two pyramids without its mixture weights net (not ported yet).
+# (e) runs two pyramids without its mixture weights net, which reads both
+# directions, where inference runs the forward one alone (the net is
+# trained in phase mixture_train).
 PROB_SETUPS = [
     ("a", "sintel_uflow_elbo_inference.json", {}),
     ("b", "chairs_uflow_elbo_nondiag.json", {}),
@@ -1687,14 +1708,19 @@ class RecordingElboTrainer(RecordingTrainer, UFlowElboTrainer):
     """Keeps each step's metric row (total, l_ph, l_sm, entropy, l_oof)."""
 
 
+class RecordingMseTrainer(RecordingTrainer, MseTrainer):
+    """Keeps each step's metric row (total, l_mse, entropy, l_offdiag)."""
+
+
 class FixedNoise:
-    """``loss`` with the same injected draws at every call."""
+    """``loss`` with the same injected draws at every call: the ELBO loss's
+    (res, img1, img2) or the MSE loss's (res, gt_flow)."""
 
     def __init__(self, loss, noise):
         self.loss, self.noise, self.cfg = loss, noise, loss.cfg
 
-    def __call__(self, res, img1, img2, generator=None):
-        return self.loss(res, img1, img2, noise=self.noise)
+    def __call__(self, res, *inputs, generator=None):
+        return self.loss(res, *inputs, noise=self.noise)
 
 
 def elbo_noise(loss_cfg, b, h2, w2, gen, dev):
@@ -1715,14 +1741,21 @@ def elbo_noise(loss_cfg, b, h2, w2, gen, dev):
 
 
 def phase_elbo_kernels(dev, smi):
-    """Both kernels against their plain versions, then timed, at the ELBO
-    step's level shapes of 256x448: batch 8 (both directions of b4 on one
-    decoder pass) and 16 (two pyramids' components, setup (e)). At each
-    shape the forward kernel's rms error against float64 must be at most
-    the plain version's; the row also counts the outputs where the two
-    differ at all (the kernel rounds as the plain version does)."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    levels = {f"elbo_b{b}": level_shapes(b, EH, EW) for b in (2 * EB, 4 * EB)}
+    """Both kernels at the ELBO step's level shapes of 256x448
+    (``kernels_at_levels``): batch 8 (both directions of b4 on one decoder
+    pass) and 16 (two pyramids' components, setup (e))."""
+    return kernels_at_levels(
+        {f"elbo_b{b}": level_shapes(b, EH, EW) for b in (2 * EB, 4 * EB)},
+        SEED + 8, dev, smi)
+
+
+def kernels_at_levels(levels, seed, dev, smi):
+    """Both kernels against their plain versions, then timed, at each cell
+    of ``levels`` ({cell: level shapes}). At each shape the forward kernel's
+    rms error against float64 must be at most the plain version's; the row
+    also counts the outputs where the two differ at all (the kernel rounds
+    as the plain version does)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     checks = [(shape, MD, 0) for shapes in levels.values() for shape in shapes]
     fwd_err = check_forward(checks, gen, dev)
     for shape, _, _ in checks:
@@ -1731,13 +1764,14 @@ def phase_elbo_kernels(dev, smi):
         exact = compute_cost_volume_reference(f1.double(), f2.double(), MD)
         kernel = cost_volume_kernel(f1, f2, MD)
         plain = compute_cost_volume_reference(f1, f2, MD)
-        rms = {name: float((v.double() - exact).square().mean().sqrt())
+        rms = {f"rms_{name}": float((v.double() - exact).square().mean().sqrt())
                for name, v in (("kernel", kernel), ("plain", plain))}
         emit({"phase": "kernel_rms_vs_f64", "kernel": "cost_volume",
               "shape": shape, **rms, "unequal": int((kernel != plain).sum())})
-        if not rms["kernel"] <= rms["plain"]:
+        if not rms["rms_kernel"] <= rms["rms_plain"]:
             raise AssertionError(f"cost_volume {shape}: rms error vs float64 "
-                                 f"{rms['kernel']} > the plain version's {rms['plain']}")
+                                 f"{rms['rms_kernel']} > the plain version's "
+                                 f"{rms['rms_plain']}")
     fwd_rows = time_forward(levels, gen, dev, smi)
     bwd_err, inputs = check_grad(checks, gen, dev)
     bwd_rows = {key: time_grad(shapes, inputs, smi, key)
@@ -1746,35 +1780,65 @@ def phase_elbo_kernels(dev, smi):
 
 
 def elbo_step_check(key, name, cfg, model, loss, x, noise):
+    """One ELBO step of a setup (``step_check``), dropout off and the model
+    in eval mode. Returns the failure's message, or None."""
+    def forward_loss(net, inputs, draws, train):
+        res = net(inputs["img1"], inputs["img2"], with_bk=True, train=train)
+        return loss(res, inputs["img1"], inputs["img2"], noise=draws)
+
+    return step_check(
+        forward_loss, model, x, noise,
+        {"phase": "elbo_train_step_check", "setup": key, "config": name,
+         "approx": cfg.loss.approx, "n_samples": cfg.loss.n_samples,
+         "shape": [EB, EH, EW]})
+
+
+def step_check(forward_loss, model, x, noise, row, train=False):
     """One step's loss and parameter gradients with the kernels against the
-    plain-cost-volume model and a float64 one, dropout off, under the same
-    noise, with the train phase's bounds. Returns the failure's message, or
+    plain-cost-volume model and a float64 one, under the same noise, with
+    the train phase's bounds, and 4 + 4 launches. ``forward_loss(net,
+    inputs, draws, train)`` runs the model and the loss. With ``train``
+    the model runs in training mode with level dropout off: each run starts
+    from the same BatchNorm running statistics, and the kernel model's
+    updated ones must be within ``BN_STATS_RTOL`` of the plain model's.
+    Emits ``row`` with the results; returns the failure's message, or
     None."""
+    key = row.get("setup", row["phase"])
+    dropout, model.level_dropout = model.level_dropout, 0.0
+    buffers0 = {n: b.clone() for n, b in model.named_buffers()}
+
     def step_grads(net, inputs, draws, plain):
+        with torch.no_grad():
+            for n, b in net.named_buffers():
+                b.copy_(buffers0[n])
         net.zero_grad(set_to_none=True)
         swap = (mock.patch.object(uflow_prob_module, "compute_cost_volume", plain)
                 if plain else contextlib.nullcontext())
         with swap:
-            res = net(inputs["img1"], inputs["img2"], with_bk=True)
-            out = loss(res, inputs["img1"], inputs["img2"], noise=draws)
+            out = forward_loss(net, inputs, draws, train)
             out["total"].backward()
         torch.cuda.synchronize()
         grads = {n: p.grad.clone() for n, p in net.named_parameters()
                  if p.grad is not None}
+        stats = {n: b.clone() for n, b in net.named_buffers() if "running" in n}
         net.zero_grad(set_to_none=True)
-        return float(out["total"].detach()), grads
+        return float(out["total"].detach()), grads, stats
 
     torch.backends.cudnn.deterministic = True
     reset_launch_counts()
-    total, grads = step_grads(model, x, noise, None)
+    total, grads, stats = step_grads(model, x, noise, None)
     step_launches = {k.name: k.launches for k in KERNELS}
-    total_again, grads_again = step_grads(model, x, noise, None)
-    total_plain, grads_plain = step_grads(model, x, noise,
-                                          compute_cost_volume_reference)
+    total_again, grads_again, _ = step_grads(model, x, noise, None)
+    total_plain, grads_plain, stats_plain = step_grads(
+        model, x, noise, compute_cost_volume_reference)
     as64 = lambda d: {k: v.double() if v.is_floating_point() else v  # noqa: E731
                       for k, v in d.items()}
-    total64, grads64 = step_grads(copy.deepcopy(model).double(), as64(x),
-                                  as64(noise), compute_cost_volume_reference)
+    total64, grads64, _ = step_grads(copy.deepcopy(model).double(), as64(x),
+                                     as64(noise), compute_cost_volume_reference)
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            b.copy_(buffers0[n])
+    model.level_dropout = dropout
     if {k.name: k.launches for k in KERNELS} != {
             n: 2 * v for n, v in step_launches.items()}:
         raise AssertionError(f"({key}) the plain runs launched a kernel")
@@ -1790,18 +1854,21 @@ def elbo_step_check(key, name, cfg, model, loss, x, noise):
             if rel_l2(grads[n], grads64[n]) > 2 * rel_l2(grads_plain[n], grads64[n]) + 1e-5}
     grad_err = rel_l2(cat(grads), cat(grads_plain))
     loss_err = abs(total - total_plain) / abs(total_plain)
-    row = {"phase": "elbo_train_step_check", "setup": key, "config": name,
-           "approx": cfg.loss.approx, "n_samples": cfg.loss.n_samples,
-           "shape": [EB, EH, EW], "launches": step_launches,
-           "params_with_grad": len(grads), "loss": total,
-           "loss_plain": total_plain, "loss_plain_f64": total64,
-           "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
-           "grad_rel_l2_vs_plain": grad_err, "grad_rtol": TRAIN_GRAD_RTOL,
-           "grad_rel_l2_vs_f64": rel_l2(cat(grads), cat(grads64)),
-           "plain_grad_rel_l2_vs_f64": rel_l2(cat(grads_plain), cat(grads64)),
-           "kernel_run_to_run_loss_rel": abs(total - total_again) / abs(total),
-           "kernel_run_to_run_grad_rel_l2": rel_l2(cat(grads), cat(grads_again)),
-           "params_over_tolerance": over}
+    stats_err = max((rel_l2(stats[n], stats_plain[n]) for n in stats), default=0.0)
+    row.update({
+        "launches": step_launches, "params_with_grad": len(grads),
+        "loss": total, "loss_plain": total_plain, "loss_plain_f64": total64,
+        "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
+        "grad_rel_l2_vs_plain": grad_err, "grad_rtol": TRAIN_GRAD_RTOL,
+        "grad_rel_l2_vs_f64": rel_l2(cat(grads), cat(grads64)),
+        "plain_grad_rel_l2_vs_f64": rel_l2(cat(grads_plain), cat(grads64)),
+        "kernel_run_to_run_loss_rel": abs(total - total_again) / abs(total),
+        "kernel_run_to_run_grad_rel_l2": rel_l2(cat(grads), cat(grads_again)),
+        "params_over_tolerance": over})
+    if train:
+        row.update({"bn_buffers": len(stats),
+                    "bn_stats_rel_l2_vs_plain": stats_err,
+                    "bn_stats_rtol": BN_STATS_RTOL})
     failure = None
     if step_launches != {"cost_volume": 4, "cost_volume_bwd": 4}:
         failure = f"({key}) a step launched {step_launches}, not 4 + 4"
@@ -1809,6 +1876,8 @@ def elbo_step_check(key, name, cfg, model, loss, x, noise):
               and grad_err <= TRAIN_GRAD_RTOL and not over):
         failure = (f"({key}) step kernels vs plain: loss {loss_err}, "
                    f"gradients {grad_err}, parameters {over}")
+    elif not stats_err <= BN_STATS_RTOL:
+        failure = f"({key}) BatchNorm statistics vs plain: {stats_err}"
     torch.backends.cudnn.deterministic = False
     emit(row)
     return failure
@@ -1880,23 +1949,33 @@ def phase_elbo_train(dev, smi):
 
 
 def elbo_train_time(trainer, x, smi):
-    """Setup (a)'s step: samples/s and device ms per step (CUDA events over
-    10 steps after 2 warm-up steps), peak memory, and a profile."""
-    def one_step():
-        trainer.train_step(x["img1"], x["img2"])
+    """Setup (a)'s step (``step_time``)."""
+    step_time("elbo_train", lambda: trainer.train_step(x["img1"], x["img2"]),
+              EB, [EB, EH, EW], smi, {"setup": "a"})
 
+
+def step_time(phase, one_step, batch, shape, smi, labels=None, ranges=None,
+              groups=None,
+              census=(elbo_blocks_module, "census_loss_no_penalty")) -> dict:
+    """A train step's samples/s and device ms per step (CUDA events over 10
+    steps after 2 warm-up steps), peak memory (``{phase}_time``), and
+    ``train_step_profile`` with ``ranges`` and ``groups``
+    (``{phase}_profile``). Returns the profile."""
     for _ in range(2):
         one_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(one_step, iters=10, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    emit({"phase": "elbo_train_time", "setup": "a", "shape": [EB, EH, EW],
+    labels = labels or {}
+    emit({"phase": f"{phase}_time", **labels, "shape": shape,
           "dtype": "float32", "ms_per_step": ms, "steps_per_s": 1e3 / ms,
-          "samples_per_s": EB * 1e3 / ms, "peak_memory_gb": peak, "card": smi})
-    emit({"phase": "elbo_train_profile", "setup": "a", "shape": [EB, EH, EW],
-          **train_step_profile(one_step, ms, census=(
-              elbo_blocks_module, "census_loss_no_penalty")), "card": smi})
+          "samples_per_s": batch * 1e3 / ms, "peak_memory_gb": peak, "card": smi})
+    prof = train_step_profile(one_step, ms, census=census, ranges=ranges,
+                              extra_groups=groups)
+    emit({"phase": f"{phase}_profile", **labels, "shape": shape, **prof,
+          "peak_memory_gb": peak, "card": smi})
+    return prof
 
 
 def elbo_cli_config(root, save_root, epochs, resume=None, track_auc=False):
@@ -1993,35 +2072,8 @@ def run_elbo_cli_phase(tmp, dev, smi):
     del run_a
 
     # Runs B and C: one epoch that saves, then a resume of its checkpoint.
-    dir_b, dir_c = os.path.join(tmp, "b"), os.path.join(tmp, "c")
-    run_b = train_main(elbo_cli_config(root, dir_b, 1), log, device=dev)
-    ckpt_b = os.path.join(dir_b, "Chairs_ckpt.pth.tar")
-    restored = {}
-    restore = BaseTrainer._restore_resume
-
-    def restore_and_copy(trainer):
-        restore(trainer)
-        restored.update(trainer_state(trainer))
-
-    probe_c = EntryPointProbe(UFlowElboTrainer)
-    with mock.patch.object(BaseTrainer, "_restore_resume", restore_and_copy), \
-            probe_c.active():
-        run_c = train_main(elbo_cli_config(root, dir_c, CLI_EPOCHS, resume=ckpt_b),
-                           log, device=dev)
-    want_b = trainer_state(run_b)
-    differ = sorted(k for k in want_b if not same_state(restored.get(k), want_b[k]))
-    iters = [s["i_iter"] for s in probe_c.steps]
-    emit({"phase": "elbo_cli_resume", "restored": sorted(restored),
-          "differ_from_saved": differ, "resumed_iters": iters,
-          "final_iter": run_c.i_iter, "final_epoch": run_c.i_epoch,
-          "valid_loss": events_of(dir_c, "Valid_Loss_0")})
-    if not restored or differ:
-        raise AssertionError(f"resume restored {sorted(restored)}; differs: {differ}")
-    if iters != list(range(steps_per_epoch, n_steps)) or (
-            run_c.i_iter, run_c.i_epoch) != (n_steps, CLI_EPOCHS):
-        raise AssertionError(f"resumed run: iterations {iters}, ended at "
-                             f"{run_c.i_iter} in epoch {run_c.i_epoch}")
-    del run_b, run_c
+    resume_runs("elbo", lambda d, e, r: elbo_cli_config(root, d, e, r),
+                UFlowElboTrainer, tmp, dev, "Loss")
 
     # Overfit: ELBO_OVERFIT_STEPS steps on one fixed unaugmented batch of
     # train pairs under one fixed draw of the noise, dropout off, must
@@ -2051,6 +2103,431 @@ def run_elbo_cli_phase(tmp, dev, smi):
         raise AssertionError(f"{trainer.i_iter} steps on one batch: loss "
                              f"{before} -> {after}")
     return launches
+
+
+# MixtureWeightsNet and supervised MSE training. mixture_train:
+# chairs_uflow_elbo_mixture.json's model with its weights net and its loss
+# at the ELBO cells' crop and batch. mse_train: chairs_uflow_mse.json at
+# FlyingChairs' own 384x512 (no crop) and its batch 16, forward direction
+# only; its cli run needs 3 batches of 16 train pairs, and fids 6, 18, 43
+# and 46 are the valid split, so 56 pairs.
+MB, MH, MW = 16, CH, CW
+MSE_STEPS = 10
+MSE_OVERFIT_STEPS = 20
+MSE_CLI_PAIRS = 56
+MIXTURE_CONFIG = "chairs_uflow_elbo_mixture.json"
+MSE_CONFIG = "chairs_uflow_mse.json"
+SOLVE_REPEATS = 5
+
+
+def phase_mse_kernels(dev, smi):
+    """Both kernels at the MSE step's level shapes, 384x512 batch 16 (one
+    direction), as ``kernels_at_levels``."""
+    return kernels_at_levels({"mse_b16": level_shapes(MB, MH, MW)},
+                             SEED + 11, dev, smi)
+
+
+def trained_steps(tag, trainer, steps, per_step, row):
+    """``trainer.train()`` over its in-memory batches with the launches
+    counted: ``steps`` finite steps of ``per_step`` + ``per_step``
+    launches. Emits ``row`` with the metrics; returns the launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    rows = torch.stack(trainer.rows).cpu()
+    emit({**row, "steps": trainer.i_iter, "seconds_incl_first_steps": seconds,
+          "launches": launches,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **{k: rows[:, i].tolist() for i, k in enumerate(trainer.KEY_METERS)}})
+    if trainer.i_iter != steps or len(rows) != steps:
+        raise AssertionError(f"({tag}) {trainer.i_iter} steps, not {steps}")
+    if not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"({tag}) non-finite training metrics")
+    want = per_step * steps
+    if launches != {"cost_volume": want, "cost_volume_bwd": want}:
+        raise AssertionError(f"({tag}) {steps} steps launched {launches}, "
+                             f"not {want} + {want}")
+    return launches
+
+
+def phase_mixture_train(dev, smi):
+    """chairs_uflow_elbo_mixture.json's model with MixtureWeightsNet (two
+    pyramids) and its loss (n_samples 6) at 256x448 b4 on shifted
+    textures: one step in training mode against the plain cost volume and
+    float64, BatchNorm statistics included (``step_check``); ELBO_STEPS
+    steps through ``UFlowElboTrainer.train()``, whose BatchNorms count 2
+    updates per step, with the weights of both directions summing to 1;
+    the step timed and profiled; and ``train_main`` (``mixture_cli``)."""
+    log = logging.getLogger("chip_smoke")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    cfg = prob_config(MIXTURE_CONFIG, {})
+    if not cfg.model.mixture_weights or get_trainer(cfg.trainer) is not UFlowElboTrainer:
+        raise AssertionError(f"{MIXTURE_CONFIG}: no mixture weights net, or "
+                             f"trainer {cfg.trainer!r}")
+    model = get_model(cfg.model, device=dev, seed=SEED)
+    loss = get_loss(cfg.loss)
+    batches = []
+    for dy, dx in ((1, 2), (2, -3), (-3, 1)):
+        a, b = shifted_pair(EB, EH, EW, dy, dx, gen, dev)
+        batches.append({"img1": a, "img2": b})
+    noise = elbo_noise(cfg.loss, EB, EH // 4, EW // 4, gen, dev)
+
+    def forward_loss(net, inputs, draws, train):
+        res = net(inputs["img1"], inputs["img2"], with_bk=True, train=train)
+        return loss(res, inputs["img1"], inputs["img2"], noise=draws)
+
+    failure = step_check(forward_loss, model, batches[0], noise,
+                         {"phase": "mixture_train_step_check",
+                          "config": MIXTURE_CONFIG, "n_samples": cfg.loss.n_samples,
+                          "shape": [EB, EH, EW]}, train=True)
+
+    train_cfg = cfg.train.copy()
+    train_cfg.update(epoch_num=1, seed=SEED)
+    trainer = RecordingElboTrainer(
+        [batches[i % len(batches)] for i in range(ELBO_STEPS)], None, model,
+        loss, log, os.path.join(REPO, "outputs", "chip_smoke"), train_cfg,
+        model_cfg=cfg.model, full_cfg=cfg)
+    launches = trained_steps("mixture", trainer, ELBO_STEPS, 4,
+                             {"phase": "mixture_train", "config": MIXTURE_CONFIG,
+                              "shape": [EB, EH, EW]})
+    stem_bn = model._mixture_weights_net.resnet.conv1[1]
+    x = batches[0]
+    with torch.no_grad():
+        res = model(x["img1"], x["img2"], with_bk=True)
+    weights = torch.stack([res["weights_fw"], res["weights_bw"]])
+    sums_err = float((weights.sum(-1) - 1).abs().max())
+    emit({"phase": "mixture_weights", "weights_fw": res["weights_fw"].tolist(),
+          "weights_bw": res["weights_bw"].tolist(), "sum_err": sums_err,
+          "bn_updates": int(stem_bn.num_batches_tracked),
+          "stem_running_var_mean": float(stem_bn.running_var.mean())})
+    if not (weights.shape == (2, EB, 2) and bool(torch.isfinite(weights).all())
+            and sums_err <= 1e-6):
+        raise AssertionError(f"mixture weights {weights.tolist()}")
+    if int(stem_bn.num_batches_tracked) != 2 * ELBO_STEPS:
+        raise AssertionError(f"{int(stem_bn.num_batches_tracked)} BatchNorm "
+                             f"updates in {ELBO_STEPS} steps")
+    step_time("mixture_train", lambda: trainer.train_step(x["img1"], x["img2"]),
+              EB, [EB, EH, EW], smi,
+              ranges={"mixture_weights_net": (uflow_prob_module,
+                                              "add_mixture_weights")})
+    del trainer, model
+    if failure:
+        raise AssertionError(failure)
+    return launches
+
+
+def mixture_cli_config(root, save_root, epochs, resume=None):
+    """``configs/chairs_uflow_elbo_mixture.json``'s model, loss and train
+    sections, with chairs_uflow_elbo.json's data section (its own is the
+    older schema neither package reads) at ``root``, and ``epochs`` epochs
+    of 3 steps that each validate with AUC and save."""
+    cfg = load_config(os.path.join(REPO, "configs", MIXTURE_CONFIG))
+    cfg.data = elbo_cli_config(root, save_root, epochs).data
+    cfg.save_root = save_root
+    cfg.train.update(epoch_num=epochs, epoch_size=ELBO_CLI_EPOCH_SIZE,
+                     valid_freq=1, save_iter=0, track_auc=True)
+    if resume is not None:
+        cfg.train.resume = resume
+    return cfg
+
+
+def cli_runs(tag, make_cfg, trainer_cls, tmp, dev, smi, batch, launches_want,
+             valid_names):
+    """``train_main`` of ``make_cfg(save_root, epochs, resume)``: run A, 2
+    epochs of 3 steps with validation and checkpoints (``{tag}_cli_train``);
+    then ``resume_runs``. Returns run A's launches."""
+    log = logging.getLogger("chip_smoke")
+    steps_per_epoch = ELBO_CLI_EPOCH_SIZE + 1
+    n_steps = CLI_EPOCHS * steps_per_epoch
+    dir_a = os.path.join(tmp, f"{tag}_a")
+    probe = EntryPointProbe(trainer_cls)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with probe.active():
+        run_a = train_main(make_cfg(dir_a, CLI_EPOCHS, None), log, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    rows = torch.stack([st["metrics"] for st in probe.steps]).cpu()
+    files = sorted(os.listdir(dir_a))
+    valid = {name: events_of(dir_a, f"Valid_{name}_0") for name in valid_names}
+    laps = [st["data_s"] + st["batch_s"] for st in probe.steps]
+    want = launches_want(n_steps)
+    emit({"phase": f"{tag}_cli_train", "run": "A", "shape": [batch, MH, MW],
+          "epochs": run_a.i_epoch, "steps": run_a.i_iter, "launches": launches,
+          "launches_want": want, "losses": rows[:, 0].tolist(), "valid": valid,
+          "best_error": run_a.best_error, "files": files,
+          "seconds_train_main": seconds,
+          "samples_per_s": batch * len(laps) / sum(laps),
+          "validation_s": sum(probe.seconds["_validate_with_gt"]),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    if (run_a.i_iter, run_a.i_epoch, len(rows)) != (n_steps, CLI_EPOCHS, n_steps):
+        raise AssertionError(f"({tag}) run A: {run_a.i_iter} steps in "
+                             f"{run_a.i_epoch} epochs, not {n_steps} in {CLI_EPOCHS}")
+    if launches != want:
+        raise AssertionError(f"({tag}) run A launched {launches}, not {want}")
+    if not (bool(torch.isfinite(rows).all())
+            and all(len(v) == CLI_EPOCHS and np.isfinite(v).all()
+                    for v in valid.values())):
+        raise AssertionError(f"({tag}) run A: non-finite losses or validation {valid}")
+    first = valid[valid_names[0]]
+    if run_a.best_error != min(first):
+        raise AssertionError(f"({tag}) best checkpoint on {run_a.best_error}, "
+                             f"not the validation {valid_names[0]} {first}")
+    missing = {"Chairs_ckpt.pth.tar", "Chairs_model_best.pth.tar",
+               "events.jsonl"} - set(files)
+    if missing:
+        raise AssertionError(f"({tag}) run A wrote no {sorted(missing)}")
+    del run_a
+    resume_runs(tag, make_cfg, trainer_cls, tmp, dev, valid_names[0])
+    return launches
+
+
+def resume_runs(tag, make_cfg, trainer_cls, tmp, dev, valid_name):
+    """``train_main`` of ``make_cfg(save_root, epochs, resume)``: run B, 1
+    epoch that saves; run C, a resume of B's checkpoint to 2 epochs, which
+    must restore weights, buffers, Adam state, schedule count, generator
+    and counters bit for bit and go on from B's iteration. Emits
+    ``{tag}_cli_resume``."""
+    log = logging.getLogger("chip_smoke")
+    steps_per_epoch = ELBO_CLI_EPOCH_SIZE + 1
+    n_steps = CLI_EPOCHS * steps_per_epoch
+    dir_b, dir_c = os.path.join(tmp, f"{tag}_b"), os.path.join(tmp, f"{tag}_c")
+    run_b = train_main(make_cfg(dir_b, 1, None), log, device=dev)
+    ckpt_b = os.path.join(dir_b, "Chairs_ckpt.pth.tar")
+    restored = {}
+    restore = BaseTrainer._restore_resume
+
+    def restore_and_copy(trainer):
+        restore(trainer)
+        restored.update(trainer_state(trainer))
+
+    probe_c = EntryPointProbe(trainer_cls)
+    with mock.patch.object(BaseTrainer, "_restore_resume", restore_and_copy), \
+            probe_c.active():
+        run_c = train_main(make_cfg(dir_c, CLI_EPOCHS, ckpt_b), log, device=dev)
+    want_b = trainer_state(run_b)
+    differ = sorted(k for k in want_b if not same_state(restored.get(k), want_b[k]))
+    iters = [st["i_iter"] for st in probe_c.steps]
+    emit({"phase": f"{tag}_cli_resume", "restored": sorted(restored),
+          "differ_from_saved": differ,
+          "buffers_restored": sum(1 for _ in run_b.model.buffers()),
+          "resumed_iters": iters, "final_iter": run_c.i_iter,
+          "final_epoch": run_c.i_epoch,
+          f"valid_{valid_name}": events_of(dir_c, f"Valid_{valid_name}_0")})
+    if not restored or differ:
+        raise AssertionError(f"({tag}) resume restored {sorted(restored)}; "
+                             f"differs: {differ}")
+    if iters != list(range(steps_per_epoch, n_steps)) or (
+            run_c.i_iter, run_c.i_epoch) != (n_steps, CLI_EPOCHS):
+        raise AssertionError(f"({tag}) resumed run: iterations {iters}, ended "
+                             f"at {run_c.i_iter} in epoch {run_c.i_epoch}")
+
+
+def phase_mixture_cli(dev, smi):
+    """``train_main`` with the mixture config on the cli phase's directory
+    (written anew): validation with the weights, entropy and AUC, both
+    checkpoints and a resume, BatchNorm buffers included. Under
+    ``PerSampleDraws``, as the cli phase."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mixture_cli_")
+    try:
+        with PerSampleDraws(SEED).active():
+            root = os.path.join(tmp, "chairs")
+            os.makedirs(root)
+            write_chairs_dir(root, dev)
+            return cli_runs(
+                "mixture", lambda d, e, r: mixture_cli_config(root, d, e, r),
+                UFlowElboTrainer, tmp, dev, smi, EB,
+                # the config's valid batch is 1: 2 forwards per validation
+                lambda n: {"cost_volume": 4 * n + 8 * CLI_EPOCHS,
+                           "cost_volume_bwd": 4 * n},
+                ("Loss", "EPE", "AUC", "entropy"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mse_batches(gen, dev):
+    """Three batches of shifted textures at 384x512 b16, the shift as the
+    ground-truth flow, (u, v) = (dx, dy)."""
+    batches = []
+    for dy, dx in ((1, 2), (2, -3), (-3, 1)):
+        a, b = shifted_pair(MB, MH, MW, dy, dx, gen, dev)
+        flow = torch.tensor([float(dx), float(dy)], device=dev).expand(MB, MH, MW, 2)
+        batches.append({"img1": a, "img2": b,
+                        "target": {"flow": flow.contiguous()}})
+    return batches
+
+
+def time_solve(dev, smi, step_ms):
+    """``backward_substitution`` at the MSE step's level 2 (96x128, b16,
+    C=2) as the loss calls it (diagonally dominant bands from the seed),
+    alone and with its adjoint: device ms by CUDA events (the host's launch
+    gaps included: one Python step per anti-diagonal) and by the profiler,
+    as shares of the step's device time."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    h, w = MH // 4, MW // 4
+    left = 0.5 * torch.randn((MB, h, w - 1, 2), generator=gen, device=dev)
+    over = 0.5 * torch.randn((MB, h - 1, w, 2), generator=gen, device=dev)
+    diag = (torch.exp(torch.randn((MB, h, w, 2), generator=gen, device=dev))
+            + F.pad(left.abs(), (0, 0, 1, 0)) + F.pad(over.abs(), (0, 0, 0, 0, 1, 0)))
+    zero = torch.zeros((MB, h - 1, w - 1, 2), device=dev)
+    eps = torch.randn((MB, h, w, 2), generator=gen, device=dev)
+    dy = torch.randn((MB, h, w, 2), generator=gen, device=dev)
+    bands = [t.requires_grad_() for t in (diag, left, over)]
+
+    def solve():
+        with torch.no_grad():
+            return backward_substitution(diag, left, over, zero, eps)
+
+    def solve_and_adjoint():
+        y = backward_substitution(*bands, zero, eps)
+        return torch.autograd.grad(y, bands, dy)
+
+    y = solve()
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("backward_substitution overflowed")
+    fwd_ms = cuda_ms(solve, iters=SOLVE_REPEATS, warmup=1)
+    both_ms = cuda_ms(solve_and_adjoint, iters=SOLVE_REPEATS, warmup=1)
+    prof = profile_window(solve_and_adjoint, 2, both_ms)
+    row = {"phase": "mse_solve_time", "shape": [MB, h, w, 2],
+           "diagonals": h + w - 1, "solve_ms": fwd_ms,
+           "solve_and_adjoint_ms": both_ms, "adjoint_ms": both_ms - fwd_ms,
+           "device_ms_solve_and_adjoint": prof["device_ms_per_call"],
+           "busy_share": prof["busy_share"],
+           "launches_solve_and_adjoint": prof["kernel_launches_per_call"],
+           "share_of_step_device_ms": prof["device_ms_per_call"] / step_ms,
+           "card": smi}
+    emit(row)
+    return row
+
+
+def phase_mse_train(dev, smi):
+    """chairs_uflow_mse.json (out_channels 8 with inv_cov: the 3-band
+    precision factor, diagonally dominant, sampled through
+    ``backward_substitution``) at 384x512 b16 on shifted textures whose
+    ground truth is the shift: one step against the plain cost volume and
+    float64; MSE_STEPS steps through ``MseTrainer.train()``; the step
+    timed and profiled, and the solve alone; MSE_OVERFIT_STEPS steps on one
+    fixed batch under fixed noise must lower its MSE; and ``train_main``
+    (``mse_cli``)."""
+    log = logging.getLogger("chip_smoke")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    cfg = prob_config(MSE_CONFIG, {})
+    if get_trainer(cfg.trainer) is not MseTrainer:
+        raise AssertionError(f"{MSE_CONFIG} names trainer {cfg.trainer!r}")
+    model = get_model(cfg.model, device=dev, seed=SEED)
+    loss = get_loss(cfg.loss)
+    batches = mse_batches(gen, dev)
+    noise = {"eps": torch.randn((cfg.loss.n_samples * MB, MH // 4, MW // 4, 2),
+                                generator=gen, device=dev)}
+
+    def forward_loss(net, inputs, draws, train):
+        res = net(inputs["img1"], inputs["img2"], with_bk=False, train=train)
+        return loss(res, inputs["gt"], noise=draws)
+
+    x = batches[0]
+    gt = x["target"]["flow"]
+    inputs = {"img1": x["img1"], "img2": x["img2"], "gt": gt}
+    with torch.no_grad():
+        first = forward_loss(model, inputs, noise, False)
+    # Random weights could make the precision factor's solve overflow in
+    # float32, as setup (c) of the prob phases does without its
+    # log-diagonal shift; diag_dominant keeps this one finite unshifted.
+    emit({"phase": "mse_first_forward", "log_diag_shift": 0.0,
+          **{k: float(v) for k, v in first.items()}})
+    if not all(np.isfinite(float(v)) for v in first.values()):
+        raise AssertionError(f"MSE loss at random weights: {first}")
+    failure = step_check(forward_loss, model, inputs, noise,
+                         {"phase": "mse_train_step_check", "config": MSE_CONFIG,
+                          "shape": [MB, MH, MW]})
+
+    train_cfg = cfg.train.copy()
+    train_cfg.update(epoch_num=1, seed=SEED)
+    trainer = RecordingMseTrainer(
+        [batches[i % len(batches)] for i in range(MSE_STEPS)], None, model,
+        loss, log, os.path.join(REPO, "outputs", "chip_smoke"), train_cfg,
+        model_cfg=cfg.model, full_cfg=cfg)
+    launches = trained_steps("mse", trainer, MSE_STEPS, 4,
+                             {"phase": "mse_train", "config": MSE_CONFIG,
+                              "shape": [MB, MH, MW]})
+    prof = step_time(
+        "mse_train", lambda: trainer.train_step(x["img1"], x["img2"], gt),
+        MB, [MB, MH, MW], smi,
+        ranges={"triag_solve": (mse_loss_module, "backward_substitution")},
+        groups={"triag_solve_adjoint": ("autograd::engine::evaluate_function: "
+                                        "_BackwardSubstitutionBackward",)},
+        census=None)
+    time_solve(dev, smi, prof["device_ms_per_call"])
+    del trainer
+
+    # Overfit: MSE_OVERFIT_STEPS steps on one batch under one fixed draw,
+    # dropout off, must lower that batch's MSE term.
+    model.level_dropout = 0.0
+    fixed = FixedNoise(loss, noise)
+
+    def batch_mse():
+        with torch.no_grad():
+            return float(fixed(model(x["img1"], x["img2"], with_bk=False), gt)["l_mse"])
+
+    before = batch_mse()
+    train_cfg.update(epoch_size=MSE_OVERFIT_STEPS)
+    trainer = MseTrainer([x] * MSE_OVERFIT_STEPS, None, model, fixed, log,
+                         os.path.join(REPO, "outputs", "chip_smoke"), train_cfg,
+                         model_cfg=cfg.model, full_cfg=cfg)
+    trainer.train()
+    after = batch_mse()
+    emit({"phase": "mse_overfit", "batch": [MB, MH, MW], "steps": trainer.i_iter,
+          "l_mse_untrained": before, "l_mse_after": after})
+    if trainer.i_iter != MSE_OVERFIT_STEPS or not (np.isfinite(after)
+                                                  and after < before):
+        raise AssertionError(f"{trainer.i_iter} steps on one batch: MSE "
+                             f"{before} -> {after}")
+    del trainer, model
+    if failure:
+        raise AssertionError(failure)
+    return launches
+
+
+def mse_cli_config(root, save_root, epochs, resume=None):
+    """``configs/chairs_uflow_mse.json`` with both data roots at ``root``
+    (the train entry reads the ``.flo`` ground truth), ``epochs`` epochs of
+    3 steps that each validate (EPE) and save; the rest (batch 16, no
+    augmentation, Adam, 4 workers) as the config has it."""
+    cfg = load_config(os.path.join(REPO, "configs", MSE_CONFIG))
+    for entry in cfg.data:
+        entry.root_chairs = root
+    cfg.save_root = save_root
+    cfg.train.update(epoch_num=epochs, epoch_size=ELBO_CLI_EPOCH_SIZE,
+                     valid_freq=1, save_iter=0)
+    if resume is not None:
+        cfg.train.resume = resume
+    return cfg
+
+
+def phase_mse_cli(dev, smi):
+    """``train_main`` with chairs_uflow_mse.json on MSE_CLI_PAIRS pairs
+    with ``.flo`` ground truth: EPE validation, the ``Chairs`` checkpoints
+    and a resume."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mse_cli_")
+    try:
+        root = os.path.join(tmp, "chairs")
+        os.makedirs(root)
+        write_chairs_dir(root, dev, MSE_CLI_PAIRS)
+        n_valid = 4
+        return cli_runs(
+            "mse", lambda d, e, r: mse_cli_config(root, d, e, r), MseTrainer,
+            tmp, dev, smi, MB,
+            lambda n: {"cost_volume": 4 * n + 4 * n_valid * CLI_EPOCHS,
+                       "cost_volume_bwd": 4 * n},
+            ("EPE",))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -2092,6 +2569,12 @@ def main() -> int:
     elbo_cli_launches = timed("elbo_cli", phase_elbo_cli, dev, smi)
     elbo_launches = timed("elbo_train", phase_elbo_train, dev, smi)
     elbo_launches["cli"] = elbo_cli_launches
+    mse_err, mse_rows, mse_grad_err, mse_grad_rows = timed(
+        "mse_kernels", phase_mse_kernels, dev, smi)
+    mixture_launches = {"train": timed("mixture_train", phase_mixture_train, dev, smi),
+                        "cli": timed("mixture_cli", phase_mixture_cli, dev, smi)}
+    mse_launches = {"train": timed("mse_train", phase_mse_train, dev, smi),
+                    "cli": timed("mse_cli", phase_mse_cli, dev, smi)}
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [{
         "name": COST_VOLUME.name,
@@ -2099,7 +2582,7 @@ def main() -> int:
         "source": COST_VOLUME.source,
         "replaces": COST_VOLUME.replaces,
         "launches": launches["cost_volume"],
-        "max_abs_err": max(max_err, prob_err, elbo_err),
+        "max_abs_err": max(max_err, prob_err, elbo_err, mse_err),
         # One 2-frame forward's worth at b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in per_level["b8"]),
         "plain_ms": sum(r["plain_ms"] for r in per_level["b8"]),
@@ -2132,6 +2615,13 @@ def main() -> int:
         "launches_elbo": {k: v["cost_volume"] for k, v in elbo_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in elbo_rows[key])
            for key in elbo_rows for what in ("ms", "plain_ms", "bound_ms")},
+        # The mixture weights net's ELBO training (ELBO_STEPS steps and
+        # train_main) and MSE training (MSE_STEPS steps at 384x512 b16 and
+        # train_main); one MSE step's forward at 384x512 b16.
+        "launches_mixture": {k: v["cost_volume"] for k, v in mixture_launches.items()},
+        "launches_mse": {k: v["cost_volume"] for k, v in mse_launches.items()},
+        **{f"{what}_{key}": sum(r[what] for r in mse_rows[key])
+           for key in mse_rows for what in ("ms", "plain_ms", "bound_ms")},
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",
@@ -2139,7 +2629,7 @@ def main() -> int:
         "replaces": COST_VOLUME_BWD.replaces,
         # TRAIN_STEPS train steps: 8 per step (4 levels x 2 directions).
         "launches": train_launches["cost_volume_bwd"],
-        "max_abs_err": max(grad_err, elbo_grad_err),
+        "max_abs_err": max(grad_err, elbo_grad_err, mse_grad_err),
         # One direction's worth at 256x448 b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in grad_rows),
         "plain_ms": sum(r["plain_ms"] for r in grad_rows),
@@ -2150,6 +2640,11 @@ def main() -> int:
         "launches_elbo": {k: v["cost_volume_bwd"] for k, v in elbo_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in elbo_grad_rows[key])
            for key in elbo_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
+        "launches_mixture": {k: v["cost_volume_bwd"]
+                             for k, v in mixture_launches.items()},
+        "launches_mse": {k: v["cost_volume_bwd"] for k, v in mse_launches.items()},
+        **{f"{what}_{key}": sum(r[what] for r in mse_grad_rows[key])
+           for key in mse_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
     }]})
     # The card's name and power limit as nvidia-smi prints them, on a line
     # of their own before the result line.

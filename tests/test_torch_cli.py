@@ -248,10 +248,11 @@ def test_entry_points_refuse_without_a_card(tmp_path, monkeypatch):
     cfg.model.dtype = "int8"
     with pytest.raises(ValueError, match="int8"):
         cli.train_main(cfg, log, device="cpu")
-    # the mixture weights net (chairs_uflow_elbo_mixture.json) comes with
-    # ELBO training
+    # the mixture weights net (chairs_uflow_elbo_mixture.json) reads both
+    # directions, and inference runs the forward one alone: refused before
+    # any pair is read (the JAX inference_main fails on it at the first)
     cfg = _inference_cfg(Config, tmp_path, tmp_path, "w.pth.tar",
                          dict(PROB_MODEL, mixture_weights=True, n_pyramids=2),
                          dict(PROB_LOSS, approx="mixture", n_components=2))
-    with pytest.raises(NotImplementedError, match="probabilistic UFlow"):
+    with pytest.raises(ValueError, match="mixture_weights needs with_bk=True"):
         cli.inference_main(cfg, log, device="cpu")

@@ -245,13 +245,19 @@ GRAD_EDGE_CASES = [
 ]
 
 
+# The MSE train step's levels (configs/chairs_uflow_mse.json at 384x512,
+# batch 16, the forward direction only).
+MSE_LEVELS = [(16, 32, 384 >> lv, 512 >> lv) for lv in (2, 3, 4, 5)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,md,offset", GPU_CASES + [
-    ((8, 32, 64, 112), 4, 0), ((8, 32, 8, 14), 4, 0)] + GRAD_EDGE_CASES)
+    ((8, 32, 64, 112), 4, 0), ((8, 32, 8, 14), 4, 0)] + GRAD_EDGE_CASES
+    + [(shape, 4, 0) for shape in MSE_LEVELS])
 def test_cuda_grad_kernel_matches_plain(shape, md, offset):
     """The backward kernel through the Function, at the UFlow levels of
-    384x640 and 256x448, the ragged cases above and the tile edges, both
-    gradients and each alone."""
+    384x640, 256x448 and the MSE step's 384x512 b16, the ragged cases above
+    and the tile edges, both gradients and each alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -317,9 +323,10 @@ def test_cuda_kernels_at_elbo_level_shapes(shape):
     torch.testing.assert_close(bb.grad, r2, rtol=0, atol=tol)
 
 
-# The UFlow levels of 384x640 b8 and 448x1024 b1, besides the ELBO ones.
+# The UFlow levels of 384x640 b8 and 448x1024 b1, besides the ELBO and
+# MSE ones.
 LEVELS = ELBO_LEVELS + [(8, 32, 384 >> lv, 640 >> lv) for lv in (2, 3, 4, 5)] + [
-    (1, 32, 448 >> lv, 1024 >> lv) for lv in (2, 3, 4, 5)]
+    (1, 32, 448 >> lv, 1024 >> lv) for lv in (2, 3, 4, 5)] + MSE_LEVELS
 
 
 @pytest.mark.gpu

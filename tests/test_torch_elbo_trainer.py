@@ -238,9 +238,9 @@ def test_train_main_chairs_uflow_elbo_and_evaluate_flag(tmp_path, monkeypatch):
 def test_train_main_shipped_elbo_configs(name, tmp_path):
     """Each shipped ``uflow_elbo`` config's model, loss and train sections
     train (two steps, given a FlyingChairs directory for its data, and the
-    fine-tuning configs a checkpoint to start from), but for the mixture
-    weights net and the sparse precision ELBO, which raise and name their
-    roadmap item."""
+    fine-tuning configs a checkpoint to start from; the mixture config with
+    its weights net), but for the sparse precision ELBO, which raises and
+    names its roadmap item."""
     root = make_shifted_chairs_dir(tmp_path / "chairs", np.random.RandomState(5),
                                    4, H, W)
     cfg = load_config(os.path.join(REPO, "configs", name))
@@ -255,10 +255,10 @@ def test_train_main_shipped_elbo_configs(name, tmp_path):
         torch.save({"epoch": 0, "state_dict": get_model(
             cfg.model, device="cpu", seed=1).state_dict()}, path)
         cfg.train.pretrained_model = path
-    if name in ("chairs_uflow_elbo_mixture.json", "chairs_uflow_elbo_nondiag_inv.json"):
+    if name == "chairs_uflow_elbo_nondiag_inv.json":
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, 'the "
-                           "probabilistic UFlow path' \\((MixtureWeightsNet|the "
-                           "sparse precision ELBO)\\)"):
+                           "probabilistic UFlow path' \\(the sparse precision "
+                           "ELBO\\)"):
             cli.train_main(cfg, log, device="cpu")
         return
     tr = cli.train_main(cfg, log, device="cpu")

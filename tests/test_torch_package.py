@@ -45,9 +45,9 @@ bad = sorted(m for m in sys.modules
 print(" ".join(names), "|", bad)
 """
 
-# The entry points, the host-side pipeline, the probabilistic path and its
-# ELBO training, which no earlier module imported: they must be among the
-# modules checked.
+# The entry points, the host-side pipeline, the probabilistic path, its
+# ELBO and MSE training, which no earlier module imported: they must be
+# among the modules checked.
 ENTRY_AND_DATA = [
     "arflow_tpu_torch.cli", "arflow_tpu_torch.data",
     "arflow_tpu_torch.data.datasets", "arflow_tpu_torch.data.get_dataset",
@@ -59,6 +59,7 @@ ENTRY_AND_DATA = [
     "arflow_tpu_torch.utils.metrics", "arflow_tpu_torch.losses.blocks",
     "arflow_tpu_torch.losses.uflow_elbo", "arflow_tpu_torch.ops.penalties",
     "arflow_tpu_torch.training.uflow_elbo_trainer",
+    "arflow_tpu_torch.losses.mse", "arflow_tpu_torch.training.mse_trainer",
 ]
 
 
@@ -93,8 +94,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 @pytest.mark.parametrize("model_cfg", [
     {"type": "pwclite", "n_frames": 2},
-    {"type": "uflow_prob", "out_channels": [2, 2, 0], "mixture_weights": True,
-     "n_pyramids": 2},
+    {"type": "pwclite_prob", "n_frames": 2},
     {"type": "uflow", "dtype": "bfloat16"},
 ])
 def test_unported_configs_raise_and_name_the_roadmap(model_cfg):

@@ -85,42 +85,39 @@ def test_load_pretrained_strict_round_trip(case, tmp_path):
 
 
 def test_mixture_weights_and_training_refused():
-    """``mixture_weights`` raises and names its roadmap step; training with
-    level dropout needs a generator to draw from."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*MixtureWeightsNet"):
-        get_model(Config({"type": "component", "out_channels": [2, 2, 0],
-                          "mixture_weights": True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*MixtureWeightsNet"):
-        uflow_prob_state_dict_from_jax({"feature_pyramid_0": {},
-                                        "mixture_weights_net": {}})
+    """``mixture_weights`` reads both directions, so ``with_bk=False``
+    raises and says so; training with level dropout needs a generator to
+    draw from."""
+    model = get_model(Config({"type": "component", "out_channels": [2, 2, 0],
+                              "mixture_weights": True}), device="cpu")
+    img = torch.zeros((1, H, W, 3))
+    with pytest.raises(ValueError, match="mixture_weights needs with_bk=True"):
+        model(img, img, with_bk=False)
     model = get_model(Config(dict(model_cfg("diag"), level_dropout=0.5)),
                       device="cpu")
-    img = torch.zeros((1, H, W, 3))
     with pytest.raises(ValueError, match="Generator"):
         model(img, img, train=True)
 
 
 def test_every_shipped_prob_config_builds():
-    """Each shipped ``uflow_prob`` config's model section builds, but for
-    ``mixture_weights`` (chairs_uflow_elbo_mixture.json), which raises."""
+    """Each shipped ``uflow_prob`` config's model section builds, with
+    ``mixture_weights`` (chairs_uflow_elbo_mixture.json) its weights net."""
     import glob
     import os
 
     from arflow_tpu_torch import load_config
 
-    built, refused = [], []
+    built, with_weights_net = [], []
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for path in sorted(glob.glob(os.path.join(repo, "configs", "*.json"))):
         cfg = load_config(path)
         if cfg.model.type != "uflow_prob":
             continue
-        name = os.path.basename(path)
+        model = get_model(cfg.model, device="cpu")
+        assert isinstance(model, PWCProbFlow)
+        built.append(os.path.basename(path))
         if cfg.model.get("mixture_weights"):
-            with pytest.raises(NotImplementedError, match="MixtureWeightsNet"):
-                get_model(cfg.model, device="cpu")
-            refused.append(name)
-        else:
-            assert isinstance(get_model(cfg.model, device="cpu"), PWCProbFlow)
-            built.append(name)
-    assert refused == ["chairs_uflow_elbo_mixture.json"]
-    assert len(built) == 11
+            assert model._mixture_weights_net.k == 2
+            with_weights_net.append(built[-1])
+    assert with_weights_net == ["chairs_uflow_elbo_mixture.json"]
+    assert len(built) == 12
