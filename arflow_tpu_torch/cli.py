@@ -6,11 +6,18 @@ offline evaluation of its outputs, as ``arflow_tpu/cli.py`` has them.
     arflow-torch-train -c configs/chairs_uflow_mse.json [--device cpu]
     arflow-torch-inference -c cfg.json -m ckpt.pth.tar [--device cpu]
     arflow-torch-evaluate-flo --pred_root out/ --gt_root gt/
-    python -m arflow_tpu_torch.cli train|inference|evaluate-flo ...
+    arflow-torch-export -c cfg.json -m ckpt -o model.afx [--streaming]
+    arflow-torch-stream -c cfg.json -m ckpt --frames dir/ [--out flo/] [--bw]
+    arflow-torch-stream --artifact model.afx --frames dir/ [--out flo/]
+    arflow-torch-fit-penalty -c cfg.json --penalty smooth|data
+    arflow-torch-to-torch -c cfg.json -m ckpt.msgpack -o ckpt.pth.tar
+    python -m arflow_tpu_torch.cli train|inference|evaluate-flo|export|stream|fit-penalty|to-torch ...
 
-Training and inference run on the CUDA device unless ``--device``
-(``device=``) says otherwise, and raise without a card instead of dropping
-to the CPU; the evaluation is numpy on the host.
+Every command that runs a model or a loss does so on the CUDA device unless
+``--device`` (``device=``) says otherwise, and raises without a card instead
+of dropping to the CPU; the evaluation and the conversion are host code. A
+checkpoint given with ``-m`` is a ``.pth(.tar)`` or the JAX package's
+``.msgpack``.
 """
 
 from __future__ import annotations
@@ -312,16 +319,236 @@ def evaluate_flo_cli(argv=None):
     return out
 
 
+def fit_penalty_cli(argv=None):
+    """Fit a GMM penalty: sample data or smoothness residuals with the
+    ground-truth flow of the config's dataset (its train set, else its
+    first valid set; each sample needs ``flow`` and ``flow_bw``, as
+    ``Chairs2``'s valid split has them), fit a K-component mixture by
+    variational EM and print the ``(pi, beta)`` arrays for the config's
+    ``penalty_{smooth,census}_{pi,beta}``, as the JAX package's
+    ``fit_penalty_cli`` prints them. Returns ``{'samples', 'objectives',
+    'pi', 'beta', 'scale', 'collect_s', 'em_s'}``."""
+    parser = argparse.ArgumentParser(prog="arflow-torch-fit-penalty")
+    parser.add_argument("-c", "--config", required=True,
+                        help="training config providing data + loss sections")
+    parser.add_argument("--penalty", choices=["data", "smooth"], default="smooth")
+    parser.add_argument("--k", type=int, default=10)
+    parser.add_argument("--n_iter", type=int, default=30)
+    parser.add_argument("--n_samples", type=float, default=3e6)
+    parser.add_argument("--subsample", type=float, default=0.95)
+    parser.add_argument(
+        "--init_vars", type=float, nargs="+",
+        default=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 50])
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default: cuda)")
+    args = parser.parse_args(argv)
+
+    from arflow_tpu_torch.data import DataLoader, get_dataset
+    from arflow_tpu_torch.tools.penalty_em import (
+        EM,
+        abs_robust_loss_fwhm,
+        collect_residuals,
+        fwhm_scale,
+        robust_l1_fwhm,
+    )
+
+    dev = resolve_device(args.device)
+    cfg = load_config(args.config)
+    train_set, valid_set = get_dataset(cfg, seed=cfg.get("seed", 0))
+    dataset = train_set if train_set is not None else valid_set[0]
+    loader = DataLoader(dataset, batch_size=cfg.train.get("batch_size", 4),
+                        num_workers=cfg.train.get("workers", 2), shuffle=True)
+
+    t0 = time.perf_counter()
+    x0 = collect_residuals(loader, cfg.loss, penalty=args.penalty,
+                           subsample=args.subsample,
+                           n_samples=args.n_samples, device=dev)
+    t1 = time.perf_counter()
+    print(f"collected {x0.size} residual samples")
+    em = EM(k=args.k, init_vars=args.init_vars, device=dev)
+    objectives = em.fit(x0, n_iter=args.n_iter)
+    for j, obj in enumerate(objectives):
+        print(f"update {j}: objective {obj:.2f}")
+    t2 = time.perf_counter()
+
+    pi = em.state.pi.cpu().numpy()
+    beta = em.state.beta.cpu().numpy()
+    ref_fwhm = (abs_robust_loss_fwhm() if args.penalty == "data"
+                else robust_l1_fwhm())
+    scale = fwhm_scale(pi, np.zeros_like(pi), beta, ref_fwhm)
+    print("Pi: ", pi.tolist())
+    print("Beta: ", beta.tolist())
+    print("Scaling factor: ", scale)
+    print("Beta scaled: ", (beta * scale).tolist())
+    return {"samples": int(x0.size), "objectives": objectives, "pi": pi,
+            "beta": beta, "scale": float(scale), "collect_s": t1 - t0,
+            "em_s": t2 - t1}
+
+
+def _size(text):
+    """``"HxW"`` -> (H, W)."""
+    return tuple(int(v) for v in text.lower().split("x"))
+
+
+def _checkpoint(parser, cfg, model):
+    ckpt = model or cfg.get("inference", {}).get("pretrained_model")
+    if not ckpt:
+        parser.error("no checkpoint: pass -m or set inference.pretrained_model")
+    return ckpt
+
+
+def export_cli(argv=None):
+    """Export the serving forward of a config and checkpoint to a
+    ``torch.export`` artifact (``serving/export.py``): monolithic, or with
+    ``--streaming`` the engine's pyramid and decoder programs. An artifact
+    runs only on the device it was exported for (``--device``). Returns
+    the header written."""
+    parser = argparse.ArgumentParser(prog="arflow-torch-export")
+    parser.add_argument("-c", "--config", required=True,
+                        help="training/inference config (model + loss)")
+    parser.add_argument("-m", "--model", default=None,
+                        help="checkpoint (overrides cfg.inference.pretrained_model)")
+    parser.add_argument("-o", "--output", required=True,
+                        help="artifact file to write (e.g. model.afx)")
+    parser.add_argument("--batch", type=int, default=1)
+    parser.add_argument("--size", default="384x640",
+                        help="HxW input size (default 384x640)")
+    parser.add_argument("--device", default="cuda",
+                        help="device the artifact runs on (default: cuda)")
+    parser.add_argument("--streaming", action="store_true",
+                        help="export the split pyramid+decoder programs "
+                             "(one pyramid per frame; run with "
+                             "arflow-torch-stream --artifact)")
+    args = parser.parse_args(argv)
+
+    from arflow_tpu_torch.models import load_pretrained
+    from arflow_tpu_torch.serving.export import (
+        export_inference,
+        export_streaming,
+        save_artifact,
+        save_streaming_artifact,
+    )
+
+    resolve_device(args.device)
+    cfg = load_config(args.config)
+    ckpt = _checkpoint(parser, cfg, args.model)
+    sd = load_pretrained(ckpt, cfg.model, device="cpu").state_dict()
+    export, save = ((export_streaming, save_streaming_artifact) if args.streaming
+                    else (export_inference, save_artifact))
+    exported, meta = export(cfg, sd, args.batch, _size(args.size),
+                            device=args.device)
+    meta["checkpoint"] = str(ckpt)
+    save(args.output, exported, meta)
+    print(f"wrote {args.output}: {meta}")
+    return meta
+
+
+def stream_cli(argv=None):
+    """Streaming video inference: one pyramid per frame, a ``.flo`` per
+    pair. Frames are read in sorted order from ``--frames`` (a directory of
+    PNG/PPM/JPEG files, or a glob); the flow of the pair (t-1, t) is
+    written as ``<stem_t>.flo`` under ``--out`` (``<stem_t>_bw.flo`` with
+    ``--bw``). Returns ``run_stream``'s statistics."""
+    parser = argparse.ArgumentParser(prog="arflow-torch-stream")
+    parser.add_argument("-c", "--config", default=None)
+    parser.add_argument("-m", "--model", default=None)
+    parser.add_argument("--artifact", default=None,
+                        help="streaming artifact (arflow-torch-export "
+                             "--streaming); replaces -c/-m")
+    parser.add_argument("--frames", required=True,
+                        help="directory of frames or a glob pattern")
+    parser.add_argument("--out", default=None, help="output dir for .flo")
+    parser.add_argument("--size", default=None,
+                        help="HxW inference size (default: the frames' own; "
+                             "an artifact uses its exported size)")
+    parser.add_argument("--bw", action="store_true",
+                        help="also compute the backward flow "
+                             "(<stem>_bw.flo)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run -c/-m on (default: cuda)")
+    args = parser.parse_args(argv)
+
+    import glob
+
+    from arflow_tpu_torch.serving.engine import StreamingFlowEngine, run_stream
+
+    if args.artifact is None:
+        if args.config is None:
+            parser.error("pass --artifact or -c/--config")
+        resolve_device(args.device)
+        cfg = load_config(args.config)
+        ckpt = _checkpoint(parser, cfg, args.model)
+    if os.path.isdir(args.frames):
+        paths = sorted(
+            p for p in glob.glob(os.path.join(args.frames, "*"))
+            if p.lower().endswith((".png", ".ppm", ".jpg", ".jpeg")))
+    else:
+        paths = sorted(glob.glob(args.frames))
+    if len(paths) < 2:
+        parser.error(f"need >=2 frames, found {len(paths)} in {args.frames}")
+
+    size_hw = _size(args.size) if args.size else None
+    if args.artifact is not None:
+        from arflow_tpu_torch.serving.export import load_streaming_artifact
+
+        engine = load_streaming_artifact(args.artifact)
+        engine.with_bw = args.bw
+        # The programs have static shapes: frames are resized to them.
+        size_hw = (engine.meta["height"], engine.meta["width"])
+    else:
+        from arflow_tpu_torch.models import load_pretrained
+
+        sd = load_pretrained(ckpt, cfg.model, device="cpu").state_dict()
+        engine = StreamingFlowEngine(cfg.model, sd, with_bw=args.bw,
+                                     device=args.device,
+                                     loss_cfg=cfg.get("loss"))
+    stats = run_stream(engine, paths, size_hw=size_hw, out_root=args.out)
+    print(f"{stats['flows']} flows from {stats['frames']} frames: "
+          f"{stats['flows_per_sec']:.2f} flows/s steady-state")
+    return stats
+
+
+def to_torch_cli(argv=None):
+    """Convert the JAX package's msgpack checkpoint into a reference-format
+    ``.pth.tar`` (``{'epoch', 'state_dict'}``), as ``arflow-to-torch``
+    writes it; ``load_pretrained`` and the reference's strict
+    ``load_state_dict`` read it. Needs neither flax nor a card. Returns
+    the path written."""
+    parser = argparse.ArgumentParser(prog="arflow-torch-to-torch")
+    parser.add_argument("-c", "--config", required=True,
+                        help="config naming the model family (cfg.model)")
+    parser.add_argument("-m", "--model", required=True,
+                        help="the JAX package's checkpoint (.msgpack)")
+    parser.add_argument("-o", "--output", required=True,
+                        help=".pth(.tar) file to write")
+    args = parser.parse_args(argv)
+
+    from arflow_tpu_torch.models.weights import jax_variables, save_torch_checkpoint
+    from arflow_tpu_torch.training.checkpoint import load_jax_checkpoint
+
+    cfg = load_config(args.config)
+    state = load_jax_checkpoint(args.model)
+    epoch = int(state.get("epoch", 0))
+    save_torch_checkpoint(args.output, jax_variables(state), cfg.model,
+                          epoch=epoch)
+    print(f"wrote {args.output} (epoch {epoch}, model type {cfg.model.type})")
+    return args.output
+
+
+COMMANDS = {"train": train_cli, "inference": inference_cli,
+            "evaluate-flo": evaluate_flo_cli, "export": export_cli,
+            "stream": stream_cli, "fit-penalty": fit_penalty_cli,
+            "to-torch": to_torch_cli}
+
+
 def main(argv=None):
-    """``python -m arflow_tpu_torch.cli train|inference|evaluate-flo
-    [options]``."""
+    """``python -m arflow_tpu_torch.cli <command> [options]``, a command of
+    ``COMMANDS``."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    commands = {"train": train_cli, "inference": inference_cli,
-                "evaluate-flo": evaluate_flo_cli}
-    if not argv or argv[0] not in commands:
+    if not argv or argv[0] not in COMMANDS:
         raise SystemExit("usage: python -m arflow_tpu_torch.cli "
-                         "{train,inference,evaluate-flo} [options]")
-    commands[argv[0]](argv[1:])
+                         f"{{{','.join(COMMANDS)}}} [options]")
+    COMMANDS[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

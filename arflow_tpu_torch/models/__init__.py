@@ -19,6 +19,8 @@ from arflow_tpu_torch.models.uflow_prob import (  # noqa: F401
 from arflow_tpu_torch.models.weights import (  # noqa: F401
     component_state_dict_from_jax,
     load_pretrained,
+    save_torch_checkpoint,
+    state_dict_from_jax,
     uflow_prob_state_dict_from_jax,
     uflow_state_dict_from_jax,
 )

@@ -16,8 +16,12 @@ of arrays, handed over as numpy) into this package's ``state_dict``:
   ``running_mean`` / ``running_var``, and a zero int64
   ``num_batches_tracked``.
 
-``load_pretrained`` reads a reference-format ``.pth(.tar)``, the format that
-``arflow-to-torch`` writes from a JAX checkpoint, with ``strict=True``.
+``state_dict_from_jax`` dispatches on the config's model type, as
+``arflow_tpu/models/torch_export.py:export_state_dict`` does, and
+``save_torch_checkpoint`` writes its reference-format ``.pth.tar``
+(``arflow-torch-to-torch``). ``load_pretrained`` reads such a
+``.pth(.tar)`` with ``strict=True``, or a JAX msgpack checkpoint through
+``training/checkpoint.py:load_jax_checkpoint`` and ``state_dict_from_jax``.
 """
 
 from __future__ import annotations
@@ -190,24 +194,62 @@ def component_state_dict_from_jax(variables) -> dict:
     return _tensors(sd)
 
 
-def load_pretrained(path: str, model_cfg, device="cuda"):
-    """Build the model of ``model_cfg`` on ``device`` and load the
-    reference-format checkpoint at ``path`` into it with ``strict=True``.
+_CONVERTERS = {
+    "uflow": uflow_state_dict_from_jax,
+    "uflow_prob": uflow_prob_state_dict_from_jax,
+    "component": component_state_dict_from_jax,
+}
 
-    Native msgpack checkpoints need flax and stay with the JAX package;
-    ``arflow-to-torch`` converts them to this format.
-    """
+
+def state_dict_from_jax(variables, model_cfg) -> dict:
+    """JAX variables (bare params, ``{'params'}`` or with ``'batch_stats'``)
+    of the model ``model_cfg`` names -> this package's state_dict, by model
+    type. The PWC-Lite types raise as the model factory does."""
     from arflow_tpu_torch.models import get_model
 
+    if model_cfg.type not in _CONVERTERS:
+        get_model(model_cfg, device="cpu")  # raises, naming the roadmap item
+    return _CONVERTERS[model_cfg.type](variables)
+
+
+def save_torch_checkpoint(path: str, variables, model_cfg, epoch: int = 0):
+    """Write the reference-format ``{'epoch', 'state_dict'}`` ``.pth.tar`` of
+    JAX ``variables``, as ``arflow_tpu/models/torch_export.py``'s
+    ``save_torch_checkpoint`` does; ``load_pretrained`` reads it."""
+    torch.save({"epoch": epoch,
+                "state_dict": state_dict_from_jax(variables, model_cfg)}, path)
+    return path
+
+
+def jax_variables(state: dict) -> dict:
+    """A JAX checkpoint's tree -> its variables: ``{'params'}``, with
+    ``'batch_stats'`` where it has them (the JAX CLIs' reading)."""
+    variables = {"params": state.get("params", state)}
+    if state.get("batch_stats"):
+        variables["batch_stats"] = state["batch_stats"]
+    return variables
+
+
+def load_pretrained(path: str, model_cfg, device="cuda"):
+    """Build the model of ``model_cfg`` on ``device`` and load the
+    checkpoint at ``path`` into it with ``strict=True``: a reference-format
+    ``.pth(.tar)``, or the JAX package's ``.msgpack`` (its weights, through
+    ``state_dict_from_jax``)."""
+    from arflow_tpu_torch.models import get_model
+    from arflow_tpu_torch.training.checkpoint import load_jax_checkpoint
+
     dev = resolve_device(device)
-    if not path.endswith((".pth", ".pth.tar", ".tar", ".pt")):
-        raise ValueError(
-            f"{path}: not a .pth(.tar) checkpoint; convert a JAX checkpoint "
-            "with arflow-to-torch first")
     model = get_model(model_cfg, device="cpu")
-    # {'epoch', 'state_dict'} as the reference saves it, or a bare state_dict
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
-    sd = {k: v for k, v in sd.items() if k != "epoch"}
+    if path.endswith(".msgpack"):
+        sd = state_dict_from_jax(jax_variables(load_jax_checkpoint(path)),
+                                 model_cfg)
+    elif path.endswith((".pth", ".pth.tar", ".tar", ".pt")):
+        # {'epoch', 'state_dict'} as the reference saves it, or a bare one
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+        sd = {k: v for k, v in sd.items() if k != "epoch"}
+    else:
+        raise ValueError(
+            f"{path}: not a .pth(.tar) or JAX .msgpack checkpoint")
     model.load_state_dict(sd, strict=True)
     return model.to(dev)

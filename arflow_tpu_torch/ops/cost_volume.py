@@ -1,9 +1,10 @@
 """Cost volume and feature normalization (port of
 ``arflow_tpu/ops/cost_volume.py``). NCHW.
 
-``compute_cost_volume`` is the dispatcher: a CUDA tensor goes to the
-hand-written kernel, a CPU tensor to the plain version
-(``ops/cuda/cost_volume.py`` holds both). There is no switch and no fallback.
+``compute_cost_volume`` calls the op ``arflow::cost_volume``: a CUDA tensor
+goes to the hand-written kernel, a CPU tensor to the plain version, forward
+and backward (``ops/cuda/cost_volume.py`` registers the op and holds both).
+There is no switch and no fallback.
 """
 
 from __future__ import annotations
@@ -11,7 +12,6 @@ from __future__ import annotations
 import torch
 
 from arflow_tpu_torch.ops.cuda.cost_volume import (  # noqa: F401
-    CostVolume,
     compute_cost_volume_reference,
     cost_volume_grad_reference,
 )
@@ -21,7 +21,8 @@ def compute_cost_volume(features1: torch.Tensor, features2: torch.Tensor,
                         max_displacement: int = 4) -> torch.Tensor:
     """(B,C,H,W) x (B,C,H,W) -> (B,(2md+1)**2,H,W), channel mean of the
     shifted products, dy-major."""
-    return CostVolume.apply(features1, features2, max_displacement)
+    return torch.ops.arflow.cost_volume(features1, features2,
+                                        int(max_displacement))
 
 
 def normalize_features(f1: torch.Tensor, f2: torch.Tensor):

@@ -1,5 +1,5 @@
 """Local-correlation cost volume: the CUDA kernels, their plain versions
-and the autograd Function that dispatches between them.
+and the two ``torch.library`` ops that dispatch between them.
 
 The forward kernel (``arflow_tpu_torch/csrc/cost_volume.cu``) replaces the
 TPU kernels ``arflow_tpu/ops/pallas/cost_volume_pallas.py:_fwd_kernel_v2``
@@ -10,8 +10,15 @@ says what bounds it and how its design meets that. Layout is NCHW: f1, f2
 ``(B,C,H,W)`` give ``(B,(2md+1)**2,H,W)`` with dy-major displacement
 channels.
 
-``CostVolume`` runs the kernels on CUDA tensors and the plain versions on
-CPU tensors, forward and backward; there is no fallback between them.
+``arflow::cost_volume(f1, f2, max_displacement)`` and its backward
+``arflow::cost_volume_bwd`` are registered with ``torch.library``: the CUDA
+implementation of each launches its kernel, the CPU implementation is its
+plain version, and any other device raises; there is no fallback between
+them. Being ops, they are one dispatch path for eager runs, CUDA-graph
+capture and ``torch.export``, whose programs keep the op (and so the
+kernel) in their graph. Importing this module registers them; it imports
+nothing of the models, so a loader of exported programs can import it
+alone.
 """
 
 from __future__ import annotations
@@ -203,32 +210,74 @@ def cost_volume_grad_kernel(g: torch.Tensor, f1: torch.Tensor,
     return gf1, gf2
 
 
-class CostVolume(torch.autograd.Function):
-    """The kernels, forward and backward, on CUDA tensors; the plain
-    versions on CPU tensors."""
+@torch.library.custom_op("arflow::cost_volume", mutates_args=(),
+                         device_types="cuda")
+def cost_volume(f1: torch.Tensor, f2: torch.Tensor,
+                max_displacement: int) -> torch.Tensor:
+    """The cost volume of f1, f2 (B,C,H,W): the forward kernel on a CUDA
+    tensor, ``compute_cost_volume_reference`` on a CPU tensor."""
+    return cost_volume_kernel(f1, f2, max_displacement)
 
-    @staticmethod
-    def forward(ctx, f1, f2, max_displacement):
-        ctx.save_for_backward(f1, f2)
-        ctx.max_displacement = max_displacement
-        if f1.device.type == "cuda":
-            return cost_volume_kernel(f1, f2, max_displacement)
-        if f1.device.type == "cpu":
-            return compute_cost_volume_reference(f1, f2, max_displacement)
-        raise ValueError(f"cost_volume: unsupported device {f1.device}")
 
-    @staticmethod
-    def backward(ctx, g):
-        f1, f2 = ctx.saved_tensors
-        need_f1, need_f2 = ctx.needs_input_grad[:2]
-        if not (need_f1 or need_f2):
-            return None, None, None
-        md = ctx.max_displacement
-        if f1.device.type == "cuda":
-            gf1, gf2 = cost_volume_grad_kernel(g.contiguous(), f1, f2, md,
-                                               need_f1, need_f2)
-        elif f1.device.type == "cpu":
-            gf1, gf2 = cost_volume_grad_reference(g, f1, f2, md)
-        else:
-            raise ValueError(f"cost_volume: unsupported device {f1.device}")
-        return (gf1 if need_f1 else None), (gf2 if need_f2 else None), None
+@cost_volume.register_kernel("cpu")
+def _cost_volume_cpu(f1, f2, max_displacement):
+    return compute_cost_volume_reference(f1, f2, max_displacement)
+
+
+@cost_volume.register_fake
+def _cost_volume_fake(f1, f2, max_displacement):
+    b, _, h, w = f1.shape
+    return f1.new_empty((b, (2 * max_displacement + 1) ** 2, h, w))
+
+
+@torch.library.custom_op("arflow::cost_volume_bwd", mutates_args=(),
+                         device_types="cuda")
+def cost_volume_bwd(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                    max_displacement: int, need_f1: bool, need_f2: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(grad_f1, grad_f2)`` of the cost volume for its output gradient
+    ``g``: the backward kernel on CUDA tensors, which computes only the
+    gradients asked for, ``cost_volume_grad_reference`` on CPU tensors. A
+    gradient not asked for comes back empty, shape (0,)."""
+    gf1, gf2 = cost_volume_grad_kernel(g, f1, f2, max_displacement, need_f1,
+                                       need_f2)
+    return _or_empty(gf1, f1), _or_empty(gf2, f2)
+
+
+def _or_empty(grad, like):
+    return like.new_empty(0) if grad is None else grad
+
+
+@cost_volume_bwd.register_kernel("cpu")
+def _cost_volume_bwd_cpu(g, f1, f2, max_displacement, need_f1, need_f2):
+    gf1, gf2 = cost_volume_grad_reference(g, f1, f2, max_displacement)
+    # grad_f2 is a view into its padded buffer; the op's outputs are
+    # contiguous tensors of their own, as the fake describes them.
+    return (gf1 if need_f1 else f1.new_empty(0)), (gf2.contiguous() if need_f2
+                                                   else f2.new_empty(0))
+
+
+@cost_volume_bwd.register_fake
+def _cost_volume_bwd_fake(g, f1, f2, max_displacement, need_f1, need_f2):
+    return (f1.new_empty(f1.shape if need_f1 else (0,)),
+            f2.new_empty(f2.shape if need_f2 else (0,)))
+
+
+def _cost_volume_setup_context(ctx, inputs, output):
+    f1, f2, max_displacement = inputs
+    ctx.save_for_backward(f1, f2)
+    ctx.max_displacement = max_displacement
+
+
+def _cost_volume_backward(ctx, g):
+    need_f1, need_f2 = ctx.needs_input_grad[:2]
+    if not (need_f1 or need_f2):
+        return None, None, None
+    f1, f2 = ctx.saved_tensors
+    gf1, gf2 = torch.ops.arflow.cost_volume_bwd(
+        g.contiguous(), f1, f2, ctx.max_displacement, need_f1, need_f2)
+    return (gf1 if need_f1 else None), (gf2 if need_f2 else None), None
+
+
+cost_volume.register_autograd(_cost_volume_backward,
+                              setup_context=_cost_volume_setup_context)

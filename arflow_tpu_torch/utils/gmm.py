@@ -42,6 +42,31 @@ def gaussian_mixture_log_pdf(flow, mean, log_std, weights,
     return log_sum_exp(-log_det - err_sq / 2.0, weights, dim=1) / (rows * cols)
 
 
+def _draw(weights, b, h, w, generator, dtype, device):
+    """One Monte-Carlo draw: a component per image, (B,), and standard
+    normals (B, H, W, 2), in this order from ``generator``."""
+    z = torch.multinomial(weights, 1, replacement=True, generator=generator)[:, 0]
+    eps = torch.randn((b, h, w, 2), generator=generator, dtype=dtype,
+                      device=device)
+    return z, eps
+
+
+def mixture_draws(weights, shape_hw, n_samples: int = 100,
+                  generator: torch.Generator | None = None,
+                  dtype=torch.float32) -> dict:
+    """The draws ``mixture_entropy`` takes from ``generator`` (one seeded 0
+    on ``weights``' device if none is given) for maps of ``shape_hw``, as
+    ``{'z': (S, B), 'eps': (S, B, H, W, 2)}``: the same numbers in the same
+    order, to be passed back as ``mixture_entropy(..., **draws)``."""
+    if generator is None:
+        generator = torch.Generator(device=weights.device).manual_seed(0)
+    h, w = shape_hw
+    pairs = [_draw(weights, weights.shape[0], h, w, generator, dtype,
+                   weights.device) for _ in range(n_samples)]
+    return {"z": torch.stack([z for z, _ in pairs]),
+            "eps": torch.stack([e for _, e in pairs])}
+
+
 def mixture_entropy(mean, log_std, weights, n_samples: int = 100,
                     generator: torch.Generator | None = None, z=None, eps=None):
     """Monte-Carlo per-pixel mixture entropy, (B, H, W, 1): the mean over
@@ -50,7 +75,7 @@ def mixture_entropy(mean, log_std, weights, n_samples: int = 100,
 
     The draws come from ``generator`` (one seeded 0 on the tensors' device
     if none is given), or are given: ``z`` (S, B) component indices and
-    ``eps`` (S, B, H, W, 2) standard normals.
+    ``eps`` (S, B, H, W, 2) standard normals (``mixture_draws``).
     """
     std = torch.exp(log_std)
     b, h, w, _ = mean.shape
@@ -58,12 +83,11 @@ def mixture_entropy(mean, log_std, weights, n_samples: int = 100,
         generator = torch.Generator(device=mean.device).manual_seed(0)
     ent = 0.0
     for s in range(n_samples):
-        z_s = (z[s] if z is not None else
-               torch.multinomial(weights, 1, replacement=True,
-                                 generator=generator)[:, 0])
-        eps_s = (eps[s] if eps is not None else
-                 torch.randn((b, h, w, 2), generator=generator,
-                             dtype=mean.dtype, device=mean.device))
+        if z is not None and eps is not None:
+            z_s, eps_s = z[s], eps[s]
+        else:
+            z_s, eps_s = _draw(weights, b, h, w, generator, mean.dtype,
+                               mean.device)
         idx = torch.stack([2 * z_s, 2 * z_s + 1], dim=-1).view(b, 1, 1, 2)
         idx = idx.expand(b, h, w, 2)
         flow = mean.gather(-1, idx) + std.gather(-1, idx) * eps_s

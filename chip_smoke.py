@@ -22,7 +22,15 @@ validation, a resume and an overfit check; training of the mixture
 weights net (chairs_uflow_elbo_mixture.json) and supervised MSE training
 (chairs_uflow_mse.json at 384x512 b16): one step each against the plain
 cost volume and float64, steps through their trainers, ``train_main`` with
-a resume, the triangular solve's time. It checks the outputs, and
+a resume, the triangular solve's time; and the serving and tool entry
+points: ``torch.export`` artifacts of the 384x640 b8 forward, its b1
+streaming programs and setup (a) at 448x1024 b8 with its entropy, each
+loaded in a fresh interpreter that imports no model code and held to the
+eager model with 4 cost-volume launches per forward (phase export);
+``stream_cli`` over 24 PNG frames with ``-c/-m``, ``--bw`` and
+``--artifact`` held to ``StreamingFlowEngine.push`` (phase stream_cli);
+``fit_penalty_cli`` for both penalties on a Chairs2-format directory
+(phase fit_penalty). It checks the outputs, and
 times the kernels, the forwards, the streams, the train steps and the
 entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
@@ -60,7 +68,13 @@ import torch
 import torch.nn.functional as F
 
 from arflow_tpu_torch import load_config
-from arflow_tpu_torch.cli import evaluate_flo_cli, inference_main, train_main
+from arflow_tpu_torch.cli import (
+    evaluate_flo_cli,
+    fit_penalty_cli,
+    inference_main,
+    stream_cli,
+    train_main,
+)
 from arflow_tpu_torch.data import Chairs, ConcatDataset
 from arflow_tpu_torch.data.loader import DataLoader
 from arflow_tpu_torch.losses import get_loss
@@ -84,6 +98,12 @@ from arflow_tpu_torch.ops.cuda.cost_volume import (
 )
 from arflow_tpu_torch.ops.triag import backward_substitution, inverse_diagonal
 from arflow_tpu_torch.serving import StreamingFlowEngine
+from arflow_tpu_torch.serving.export import (
+    export_inference,
+    export_streaming,
+    save_artifact,
+    save_streaming_artifact,
+)
 from arflow_tpu_torch.training import get_trainer
 from arflow_tpu_torch.training.checkpoint import load_checkpoint
 from arflow_tpu_torch.training.entropy import extract_uv_entropy
@@ -2530,6 +2550,350 @@ def phase_mse_cli(dev, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Serving and tool entry points: torch.export artifacts, arflow-torch-stream
+# and arflow-torch-fit-penalty.
+EXPORT_SETUPS = (  # (key, config, batch, H, W, kind)
+    ("uflow_b8", None, B, H, W, "mono"),
+    ("uflow_stream_b1", None, 1, H, W, "stream"),
+    ("prob_a_b8", "sintel_uflow_elbo_inference.json", PB, PH, PW, "mono"),
+)
+EXPORT_STREAM_FRAMES = 8
+EXPORT_TIMING_ITERS = 10
+CLI_STREAM_FRAMES = 24
+PENALTY_PAIRS, PENALTY_H, PENALTY_W = 16, 384, 512
+
+# Loads the artifacts in a fresh interpreter that imports the op
+# registration and not the models, runs each on the inputs the parent
+# saved, counts the cost-volume launches, holds the outputs to the eager
+# ones and times the forwards (CUDA events) and the stream (host clock).
+_ARTIFACT_CHILD = r"""
+import json, sys, time
+import torch
+from arflow_tpu_torch.ops.cuda import COST_VOLUME, reset_launch_counts
+from arflow_tpu_torch.serving.export import load_artifact, load_streaming_artifact
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+
+def gap(a, b):
+    return float((a - b).abs().max()), float(b.abs().max())
+
+def cuda_ms(fn, iters):
+    for _ in range(3):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+out = []
+for case in json.loads(sys.argv[1]):
+    data = torch.load(case["data"])
+    t0 = time.perf_counter()
+    if case["kind"] == "mono":
+        art = load_artifact(case["path"])
+        load_s = time.perf_counter() - t0
+        a, b = data["img1"].cuda(), data["img2"].cuda()
+        reset_launch_counts()
+        flow, ent = art(a, b)
+        torch.cuda.synchronize()
+        launches = [COST_VOLUME.launches]
+        errs = {"flow": gap(flow, data["flow"].cuda()),
+                "entropy": gap(ent, data["entropy"].cuda())}
+        ms = cuda_ms(lambda: art(a, b), case["iters"])
+        rate = {"ms_per_batch": ms, "maps_per_s": a.shape[0] / (ms / 1e3)}
+    else:
+        art = load_streaming_artifact(case["path"])
+        load_s = time.perf_counter() - t0
+        seq = [f.cuda() for f in data["frames"]]
+        launches, errs = [], {"flow": (0.0, 0.0)}
+        for t, f in enumerate(seq):
+            reset_launch_counts()
+            res = art.push(f)
+            torch.cuda.synchronize()
+            if t:
+                launches.append(COST_VOLUME.launches)
+                e, s = gap(res["flow"], data["flows"][t - 1].cuda())
+                errs["flow"] = (max(e, errs["flow"][0]), max(s, errs["flow"][1]))
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for f in seq:
+                art.push(f)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rate = {"flows_per_s": 2 * len(seq) / dt}
+    out.append({"key": case["key"], "load_s": load_s, "launches": launches,
+                "errs": errs, **rate})
+bad = sorted(m for m in sys.modules
+             if m.startswith(("arflow_tpu_torch.models", "arflow_tpu_torch.training",
+                              "jax", "arflow_tpu.")))
+print(json.dumps({"cases": out, "imported": bad}))
+"""
+
+
+def phase_export(dev, smi, tmp):
+    """``torch.export`` artifacts of the serving forward on the card:
+    chairs_uflow.json at 384x640 b8 and its streaming programs at b1, setup
+    (a) with its entropy at 448x1024 b8. Each is exported, saved, loaded in
+    a fresh interpreter that must not import the models, run and held to
+    the eager model within FLOW_RTOL x max, with 4 cost-volume launches per
+    forward. Returns the launches per artifact."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    cases, rows = [], {}
+    for key, name, b, h, w, kind in EXPORT_SETUPS:
+        cfg = load_config(CONFIG) if name is None else prob_config(name, {})
+        model = (get_model(cfg.model, device=dev, seed=SEED) if name is None
+                 else prob_model(cfg, dev))
+        sd = model.state_dict()
+        path = os.path.join(tmp, f"{key}.afx")
+        data = os.path.join(tmp, f"{key}.pt")
+        t0 = time.perf_counter()
+        if kind == "mono":
+            ep, meta = export_inference(cfg, sd, b, (h, w), device=dev)
+            save_artifact(path, ep, meta)
+        else:
+            eps, meta = export_streaming(cfg, sd, b, (h, w), device=dev)
+            save_streaming_artifact(path, eps, meta)
+        export_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            if kind == "mono":
+                img1, img2 = shifted_pair(b, h, w, 2, 3, gen, dev)
+
+                def forward():
+                    res = model(img1, img2, with_bk=False)
+                    flow = res["flows_fw"][0][..., :2]
+                    ent = (entropy_of(res, cfg.loss, dev) if "approx" in cfg.loss
+                           else torch.zeros_like(flow))
+                    return flow, ent
+
+                flow, ent = forward()
+                ms = cuda_ms(forward, iters=EXPORT_TIMING_ITERS)
+                eager = {"eager_ms_per_batch": ms, "eager_maps_per_s": b / (ms / 1e3)}
+                torch.save({"img1": img1.cpu(), "img2": img2.cpu(),
+                            "flow": flow.cpu(), "entropy": ent.cpu()}, data)
+            else:
+                tex = texture(1, h + 64, w + 64, gen, dev)
+                seq = [tex[:, :, 2 * t:2 * t + h, 3 * t:3 * t + w]
+                       .permute(0, 2, 3, 1).contiguous()
+                       for t in range(EXPORT_STREAM_FRAMES)]
+                engine = StreamingFlowEngine(cfg.model, sd, device=dev)
+                flows = [o["flow"] for o in map(engine.push, seq) if o is not None]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    for f in seq:
+                        engine.push(f)
+                torch.cuda.synchronize()
+                eager = {"eager_flows_per_s": 2 * len(seq) / (time.perf_counter() - t0)}
+                torch.save({"frames": [f.cpu() for f in seq],
+                            "flows": [f.cpu() for f in flows]}, data)
+        rows[key] = {"kind": kind, "shape": [b, h, w], "config": name or "chairs_uflow.json",
+                     "export_s": export_s, "bytes": os.path.getsize(path), **eager}
+        cases.append({"key": key, "kind": kind, "path": path, "data": data,
+                      "iters": EXPORT_TIMING_ITERS})
+        del model
+    # Free the parent's cached blocks: a serving process has the card to
+    # itself. With them held, the child ran the b8 forward in 37 ms against
+    # 71 ms with the card free (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md,
+    # Findings), its flows 4.6e-5 from the eager model's: other convolution
+    # algorithms, the cause not isolated yet.
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", _ARTIFACT_CHILD, json.dumps(cases)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"artifact process failed:\n{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    failures, launches = [], {}
+    for res in child["cases"]:
+        row = rows[res["key"]]
+        want = 4
+        launches[res["key"]] = sum(res["launches"])
+        errs = {k: {"max_abs_err": e, "atol": FLOW_RTOL * max(s, 1.0)}
+                for k, (e, s) in res["errs"].items()}
+        row.update(load_s=res["load_s"], launches=res["launches"], errs=errs,
+                   card_free_gb_at_load=free_gb,
+                   **{k: res[k] for k in ("ms_per_batch", "maps_per_s",
+                                          "flows_per_s") if k in res})
+        emit({"phase": "export", "key": res["key"], **row, "card": smi})
+        if any(n != want for n in res["launches"]):
+            failures.append(f"{res['key']}: launches {res['launches']}, not {want} each")
+        for k, e in errs.items():
+            if not e["max_abs_err"] <= e["atol"]:
+                failures.append(f"{res['key']} {k}: {e['max_abs_err']} > {e['atol']}")
+    if child["imported"]:
+        failures.append(f"the artifact process imported {child['imported']}")
+    if failures:
+        raise AssertionError("export: " + "; ".join(failures))
+    return launches
+
+
+def write_png_frames(root, n, h, w, dev) -> list:
+    """``n`` PNG frames through PIL: a seeded texture moving (2, 3) px per
+    frame."""
+    from PIL import Image
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    tex = texture(1, h + 3 * n, w + 3 * n, gen, dev)
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for t in range(n):
+        px = (tex[0, :, 2 * t:2 * t + h, 3 * t:3 * t + w].permute(1, 2, 0) * 255)
+        path = os.path.join(root, f"frame_{t:04d}.png")
+        Image.fromarray(px.round().to(torch.uint8).cpu().numpy()).save(path)
+        paths.append(path)
+    return paths
+
+
+def phase_stream_cli(dev, smi, tmp):
+    """``arflow-torch-stream`` on 24 PNG frames at 384x640 written here:
+    ``-c/-m`` a ``.pth.tar`` of chairs_uflow.json's model, without and
+    with ``--bw``, then ``--artifact`` with the streaming artifact of phase
+    export (the same weights). Every ``.flo`` within FLOW_RTOL x max of
+    ``StreamingFlowEngine.push`` on the same decoded frames, 4 (8 with
+    ``--bw``) launches per flow; steady flows/s, the decode thread's ms
+    per frame and the loop's share of wall time waiting on the queue."""
+    from arflow_tpu_torch.serving.engine import _decode_frame
+
+    paths = write_png_frames(os.path.join(tmp, "frames"), CLI_STREAM_FRAMES, H, W, dev)
+    cfg = load_config(CONFIG)
+    model = get_model(cfg.model, device="cpu", seed=SEED)
+    ckpt = os.path.join(tmp, "uflow.pth.tar")
+    torch.save({"epoch": 0, "state_dict": model.state_dict()}, ckpt)
+    engine = StreamingFlowEngine(cfg.model, model.state_dict(), with_bw=True,
+                                 device=dev)
+    want = {}
+    with torch.inference_mode():
+        for p in paths:
+            out = engine.push(_decode_frame(p, None))
+            if out is not None:
+                stem = os.path.splitext(os.path.basename(p))[0]
+                want[stem + ".flo"] = out["flow"][0].cpu().numpy()
+                want[stem + "_bw.flo"] = out["flow_bw"][0].cpu().numpy()
+    eager = ["-c", CONFIG, "-m", ckpt, "--device", str(dev)]
+    runs = [("fw", eager, 4), ("bw", eager + ["--bw"], 8),
+            ("artifact", ["--artifact", os.path.join(tmp, "uflow_stream_b1.afx")], 4)]
+    failures, launches = [], {}
+    for name, args, per_flow in runs:
+        out_dir = os.path.join(tmp, f"flo_{name}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = stream_cli([*args, "--frames", os.path.join(tmp, "frames"),
+                            "--out", out_dir])
+        wall = time.perf_counter() - t0
+        launches[name] = COST_VOLUME.launches
+        written = sorted(os.listdir(out_dir))
+        err = scale = 0.0
+        for f in written:
+            got = read_flo(os.path.join(out_dir, f))
+            err = max(err, float(np.abs(got - want[f]).max()))
+            scale = max(scale, float(np.abs(want[f]).max()))
+        n_flows = CLI_STREAM_FRAMES - 1
+        expect_files = n_flows * (2 if name == "bw" else 1)
+        tol = FLOW_RTOL * max(scale, 1.0)
+        emit({"phase": "stream_cli", "run": name, "frames": stats["frames"],
+              "flows": stats["flows"], "files": len(written),
+              "launches": launches[name], "vs_engine_max_abs_err": err,
+              "atol": tol, "steady_flows_per_s": stats["flows_per_sec"],
+              "decode_ms_per_frame": 1e3 * stats["decode_s"] / stats["frames"],
+              "queue_wait_share": stats["queue_wait_s"] / wall,
+              "wall_s": wall, "shape": [1, H, W], "card": smi})
+        if stats["flows"] != n_flows or len(written) != expect_files:
+            failures.append(f"{name}: {stats['flows']} flows, {len(written)} files")
+        if launches[name] != per_flow * n_flows:
+            failures.append(f"{name}: {launches[name]} launches, not "
+                            f"{per_flow * n_flows}")
+        if not err <= tol:
+            failures.append(f"{name}: .flo vs engine {err} > {tol}")
+    if failures:
+        raise AssertionError("stream_cli: " + "; ".join(failures))
+    return launches
+
+
+def write_chairs2_dir(root, dev) -> None:
+    """``Chairs2``'s valid layout, ``val/{fid:07d}-img_{0,1}.png`` with
+    ``-flow_01.flo`` / ``-flow_10.flo``: PENALTY_PAIRS seeded textures at
+    PENALTY_H x PENALTY_W, the second moved by a per-pair whole shift, and
+    as flows that shift plus a smooth field within +-0.5 px, forward and
+    negated backward (so that both penalties see nonzero residuals)."""
+    from PIL import Image
+
+    val = os.path.join(root, "val")
+    os.makedirs(val)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    for fid in range(PENALTY_PAIRS):
+        dy, dx = (3 * fid) % 9 - 4, (5 * fid) % 9 - 4
+        pair = shifted_pair(1, PENALTY_H, PENALTY_W, dy, dx, gen, dev)
+        for i, img in enumerate(pair):
+            px = (img[0] * 255).round().to(torch.uint8).cpu().numpy()
+            Image.fromarray(px).save(os.path.join(val, f"{fid:07d}-img_{i}.png"))
+        field = texture(1, PENALTY_H, PENALTY_W, gen, dev)[0, :2] - 0.5
+        flow = (np.float32([dx, dy])
+                + field.permute(1, 2, 0).cpu().numpy()).astype(np.float32)
+        write_flo(os.path.join(val, f"{fid:07d}-flow_01.flo"), flow)
+        write_flo(os.path.join(val, f"{fid:07d}-flow_10.flo"), -flow)
+
+
+def phase_fit_penalty(dev, smi, tmp):
+    """``arflow-torch-fit-penalty`` with chairs_uflow_elbo.json's loss on a
+    Chairs2-format directory written here, for both penalties at
+    ``--n_samples 2e5 --n_iter 10``: finite, positive ``pi`` summing to 1
+    and a finite scale; the seconds of residual collection and of EM."""
+    root = os.path.join(tmp, "chairs2")
+    write_chairs2_dir(root, dev)
+    with open(os.path.join(REPO, "configs", "chairs_uflow_elbo.json")) as f:
+        raw = json.load(f)
+    raw["data"] = [{"name": "Chairs2", "type": "valid", "n_frames": 2,
+                    "split": "valid", "root_chairs": root}]
+    cfg_path = os.path.join(tmp, "fit_penalty.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    failures = []
+    for penalty in ("smooth", "data"):
+        with contextlib.redirect_stdout(sys.stderr):  # its report, not a result
+            res = fit_penalty_cli(["-c", cfg_path, "--penalty", penalty,
+                                   "--n_samples", "2e5", "--n_iter", "10",
+                                   "--device", str(dev)])
+        pi, beta = res["pi"], res["beta"]
+        ok = (bool(np.isfinite(pi).all()) and bool((pi > 0).all())
+              and abs(float(pi.sum()) - 1.0) <= 1e-9
+              and bool(np.isfinite(beta).all()) and np.isfinite(res["scale"]))
+        emit({"phase": "fit_penalty", "penalty": penalty,
+              "samples": res["samples"], "pi": pi.tolist(),
+              "beta": beta.tolist(), "scale": res["scale"],
+              "objective_first_last": [res["objectives"][0], res["objectives"][-1]],
+              "collect_s": res["collect_s"], "em_s": res["em_s"],
+              "pairs": PENALTY_PAIRS, "shape": [PENALTY_H, PENALTY_W], "card": smi})
+        if not ok:
+            failures.append(f"{penalty}: pi {pi.tolist()}, scale {res['scale']}")
+    if failures:
+        raise AssertionError("fit_penalty: " + "; ".join(failures))
+
+
+def phase_serving_tools(dev, smi):
+    """Phases export, stream_cli and fit_penalty in one temporary directory
+    (stream_cli runs export's streaming artifact)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        seconds = {}
+        t0 = time.perf_counter()
+        export = phase_export(dev, smi, tmp)
+        seconds["export"] = time.perf_counter() - t0
+        stream = phase_stream_cli(dev, smi, tmp)
+        seconds["stream_cli"] = time.perf_counter() - t0 - seconds["export"]
+        phase_fit_penalty(dev, smi, tmp)
+        seconds["fit_penalty"] = (time.perf_counter() - t0 - seconds["export"]
+                                  - seconds["stream_cli"])
+        return export, stream, seconds
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2575,6 +2939,8 @@ def main() -> int:
                         "cli": timed("mixture_cli", phase_mixture_cli, dev, smi)}
     mse_launches = {"train": timed("mse_train", phase_mse_train, dev, smi),
                     "cli": timed("mse_cli", phase_mse_cli, dev, smi)}
+    export_launches, stream_cli_launches, tool_seconds = phase_serving_tools(dev, smi)
+    seconds.update(tool_seconds)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [{
         "name": COST_VOLUME.name,
@@ -2622,6 +2988,12 @@ def main() -> int:
         "launches_mse": {k: v["cost_volume"] for k, v in mse_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in mse_rows[key])
            for key in mse_rows for what in ("ms", "plain_ms", "bound_ms")},
+        # torch.export artifacts loaded in a fresh process: one forward of
+        # the b8 artifacts, the b1 streaming artifact's flows (phase
+        # export); arflow-torch-stream over 24 frames, -c/-m without and
+        # with --bw and --artifact (phase stream_cli).
+        "launches_export": export_launches,
+        "launches_stream_cli": stream_cli_launches,
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",

@@ -3,8 +3,8 @@ and both Pallas kernels.
 
 The Pallas kernels run in interpret mode on the CPU, as
 ``tests/test_cost_volume_pallas.py`` runs them. The CUDA kernels themselves
-run only on the card (``-m gpu``); here the dispatcher and the autograd
-Function take their plain path, because the tensors lie on the CPU.
+run only on the card (``-m gpu``); here the op ``arflow::cost_volume`` and
+its backward take their plain path, because the tensors lie on the CPU.
 """
 
 import numpy as np
@@ -27,7 +27,6 @@ from arflow_tpu_torch.ops.cost_volume import (
 )
 from arflow_tpu_torch.ops.cuda import COST_VOLUME, COST_VOLUME_BWD
 from arflow_tpu_torch.ops.cuda.cost_volume import (
-    CostVolume,
     cost_volume_grad_kernel,
     cost_volume_kernel,
 )
@@ -80,7 +79,7 @@ def test_function_gradcheck_f64():
     f1, f2 = _pair((1, 5, 6, 3), 2, np.float64)
     a = _t(f1).requires_grad_()
     b = _t(f2).requires_grad_()
-    assert torch.autograd.gradcheck(lambda x, y: CostVolume.apply(x, y, 2),
+    assert torch.autograd.gradcheck(lambda x, y: compute_cost_volume(x, y, 2),
                                     (a, b))
 
 
@@ -91,7 +90,7 @@ def test_function_grad_matches_jax_f64():
                    argnums=(0, 1))(jnp.asarray(f1), jnp.asarray(f2))
     a = _t(f1).requires_grad_()
     b = _t(f2).requires_grad_()
-    (CostVolume.apply(a, b, md) ** 2).sum().backward()
+    (compute_cost_volume(a, b, md) ** 2).sum().backward()
     np.testing.assert_allclose(_n(a.grad), np.asarray(g_j[0]), rtol=0, atol=1e-12)
     np.testing.assert_allclose(_n(b.grad), np.asarray(g_j[1]), rtol=0, atol=1e-12)
 
@@ -159,14 +158,14 @@ def test_grad_one_gather_form_matches_grad_shifted_f64(md):
 @pytest.mark.parametrize("md", [1, 4])
 def test_grad_plain_matches_pallas_v2_vjp_f32(md):
     """``jax.vjp`` of the TPU default kernel (interpret mode) against the
-    port's Function backward on CPU tensors, float32."""
+    port's op backward on CPU tensors, float32."""
     f1, f2, g = _grad_case((2, 12, 16, 8), md, 6, np.float32)
     _, vjp = jax.vjp(lambda a, b: cost_volume_pallas_v2(a, b, md),
                      jnp.asarray(f1), jnp.asarray(f2))
     ref = vjp(jnp.asarray(g))
     a = _t(f1).requires_grad_()
     b = _t(f2).requires_grad_()
-    CostVolume.apply(a, b, md).backward(_t(g))
+    compute_cost_volume(a, b, md).backward(_t(g))
     # The same float32 terms summed in the same order (measured: equal bit
     # for bit on gradients up to 4.1); the bound leaves room for a few ulp.
     for ours, theirs in ((a.grad, ref[0]), (b.grad, ref[1])):
@@ -179,7 +178,7 @@ def test_function_backward_honours_needs_input_grad():
     a = _t(f1).requires_grad_()
     b = _t(f2)
     before = COST_VOLUME_BWD.launches
-    (CostVolume.apply(a, b, 2) ** 2).sum().backward()
+    (compute_cost_volume(a, b, 2) ** 2).sum().backward()
     assert a.grad is not None and b.grad is None
     assert COST_VOLUME_BWD.launches == before  # CPU: plain version
 
@@ -255,7 +254,7 @@ MSE_LEVELS = [(16, 32, 384 >> lv, 512 >> lv) for lv in (2, 3, 4, 5)]
     ((8, 32, 64, 112), 4, 0), ((8, 32, 8, 14), 4, 0)] + GRAD_EDGE_CASES
     + [(shape, 4, 0) for shape in MSE_LEVELS])
 def test_cuda_grad_kernel_matches_plain(shape, md, offset):
-    """The backward kernel through the Function, at the UFlow levels of
+    """The backward kernel through the op, at the UFlow levels of
     384x640, 256x448 and the MSE step's 384x512 b16, the ragged cases above
     and the tile edges, both gradients and each alone."""
     if not torch.cuda.is_available():
@@ -277,7 +276,7 @@ def test_cuda_grad_kernel_matches_plain(shape, md, offset):
     before = COST_VOLUME_BWD.launches
     a = f1.clone().requires_grad_()
     bb = f2.clone().requires_grad_()
-    CostVolume.apply(a, bb, md).backward(g)
+    compute_cost_volume(a, bb, md).backward(g)
     torch.cuda.synchronize()
     assert COST_VOLUME_BWD.launches == before + 1
     torch.testing.assert_close(a.grad, r1, rtol=0, atol=tol)
@@ -299,7 +298,7 @@ ELBO_LEVELS = [(b, 32, 256 >> lv, 448 >> lv) for b in (8, 16) for lv in (2, 3, 4
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", ELBO_LEVELS)
 def test_cuda_kernels_at_elbo_level_shapes(shape):
-    """Both kernels, launched through the Function, against their plain
+    """Both kernels, launched through the op, against their plain
     versions at the ELBO step's level shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -310,7 +309,7 @@ def test_cuda_kernels_at_elbo_level_shapes(shape):
     g = torch.randn((b, 81, h, w), device="cuda", generator=gen)
     before = (COST_VOLUME.launches, COST_VOLUME_BWD.launches)
     a, bb = f1.clone().requires_grad_(), f2.clone().requires_grad_()
-    out = CostVolume.apply(a, bb, 4)
+    out = compute_cost_volume(a, bb, 4)
     out.backward(g)
     torch.cuda.synchronize()
     assert (COST_VOLUME.launches, COST_VOLUME_BWD.launches) == (

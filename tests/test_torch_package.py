@@ -46,8 +46,8 @@ print(" ".join(names), "|", bad)
 """
 
 # The entry points, the host-side pipeline, the probabilistic path, its
-# ELBO and MSE training, which no earlier module imported: they must be
-# among the modules checked.
+# ELBO and MSE training, the export, stream and penalty tools, which no
+# earlier module imported: they must be among the modules checked.
 ENTRY_AND_DATA = [
     "arflow_tpu_torch.cli", "arflow_tpu_torch.data",
     "arflow_tpu_torch.data.datasets", "arflow_tpu_torch.data.get_dataset",
@@ -60,6 +60,8 @@ ENTRY_AND_DATA = [
     "arflow_tpu_torch.losses.uflow_elbo", "arflow_tpu_torch.ops.penalties",
     "arflow_tpu_torch.training.uflow_elbo_trainer",
     "arflow_tpu_torch.losses.mse", "arflow_tpu_torch.training.mse_trainer",
+    "arflow_tpu_torch.serving.export", "arflow_tpu_torch.serving.engine",
+    "arflow_tpu_torch.tools", "arflow_tpu_torch.tools.penalty_em",
 ]
 
 

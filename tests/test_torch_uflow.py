@@ -75,6 +75,8 @@ def test_load_pretrained_strict_round_trip(jax_params, tmp_path):
     assert sorted(got) == sorted(expected)
     for k, v in expected.items():
         torch.testing.assert_close(got[k], v, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="arflow-to-torch"):
-        load_pretrained(str(tmp_path / "ckpt.msgpack"), Config(CFG),
+    # A JAX .msgpack loads too (tests/test_torch_to_torch.py); another
+    # suffix raises.
+    with pytest.raises(ValueError, match="not a .pth"):
+        load_pretrained(str(tmp_path / "ckpt.bin"), Config(CFG),
                         device="cpu")
