@@ -20,7 +20,9 @@ Tensors are NHWC, as the model returns them. Draws come from
 shapes: ``eps12`` / ``eps21`` (n*B, h, w, 2) standard normals, for
 ``lowrank`` (n*B, 1, 1, 2*columns), and for ``mixture`` ``z12`` / ``z21``
 (B, n) component indices. The mixture's components are drawn with
-``torch.multinomial`` on the weights.
+``torch.multinomial`` on the weights; a row of non-finite weights (a
+non-finite step, which ``train.nan_revert`` discards) draws uniformly
+instead of raising, as ``jax.random.categorical`` draws without raising.
 
 As the JAX loss does: the closed-form smoothness reads the un-tiled image,
 and with ``isotropic_smooth`` the smoothness mean pairs every batch entry's
@@ -53,6 +55,14 @@ TAYLOR_NOT_PORTED = (
     "loss.taylor_warp is not ported yet: ROADMAP.md queue 1, 'the "
     "probabilistic UFlow path' (the Taylor warp); the port warps each "
     "sample exactly")
+
+
+def _drawable(weights: torch.Tensor) -> torch.Tensor:
+    """``weights`` (B, K), with each row that holds a non-finite value
+    replaced by uniform weights."""
+    ok = torch.isfinite(weights).all(dim=1, keepdim=True)
+    uniform = torch.full_like(weights, 1.0 / weights.shape[1])
+    return torch.where(ok, weights, uniform)
 
 
 def _tile(x, n):
@@ -172,10 +182,10 @@ class UFlowElboLoss:
             if "z12" in noise:
                 z12, z21 = noise["z12"], noise["z21"]
             else:
-                z12 = torch.multinomial(weights12, n, replacement=True,
-                                        generator=draw_from())
-                z21 = torch.multinomial(weights21, n, replacement=True,
-                                        generator=draw_from())
+                z12 = torch.multinomial(_drawable(weights12), n,
+                                        replacement=True, generator=draw_from())
+                z21 = torch.multinomial(_drawable(weights21), n,
+                                        replacement=True, generator=draw_from())
             flow12_2 = self._reparam_gmm(mean12_2, diag12_2, z12, eps12)
             flow21_2 = self._reparam_gmm(mean21_2, diag21_2, z21, eps21)
         else:  # lowrank

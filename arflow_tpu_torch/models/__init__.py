@@ -1,7 +1,8 @@
 """Model factory of the port: ``type: "uflow"`` (``PWCFlow``),
 ``"uflow_prob"`` (``PWCProbFlow``) and ``"component"`` (``ComponentNet``),
-either with ``mixture_weights``, in float32. The other families and dtypes
-raise and name the roadmap item that brings them."""
+either with ``mixture_weights``, with ``dtype`` float32 or bfloat16. The
+other families and ``int8`` raise and name the roadmap item that brings
+them."""
 
 from __future__ import annotations
 
@@ -32,6 +33,24 @@ _NOT_PORTED = {
 }
 
 
+def parse_dtype(name):
+    """``model.dtype`` -> the compute dtype: None for float32 math
+    (``None``, ``"float32"``, ``"f32"``), ``torch.bfloat16`` for
+    ``"bfloat16"`` / ``"bf16"`` (float32 parameters and outputs). ``"int8"``
+    is the JAX package's serving mode measured on its own chip only
+    (``arflow_tpu/cli.py:67-76``) and raises."""
+    if name in (None, "float32", "f32"):
+        return None
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name == "int8":
+        raise NotImplementedError(
+            "model.dtype 'int8' (the JAX package's quantized serving "
+            "pyramid) is not ported: ROADMAP.md queue 1, 'config switches' "
+            "(model.dtype int8)")
+    raise NotImplementedError(f"model dtype {name!r}")
+
+
 def _normalize_out_channels(oc) -> tuple:
     """The [L, M, N] group list, or the older int schema of some configs
     (``"out_channels": 4`` is 2 flow + 2 log-diagonal channels)."""
@@ -44,20 +63,18 @@ def get_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
     """``cfg`` (the config's ``model`` section) -> the model on ``device``,
     its weights drawn from ``torch.Generator().manual_seed(seed)``
     (xavier-uniform, zero bias; BatchNorm at scale 1, shift 0 and unit
-    running statistics), in eval mode. Load trained weights with
-    ``load_state_dict`` or ``load_pretrained``."""
+    running statistics), in eval mode, its parameters float32 whatever
+    ``cfg.dtype`` computes in. Load trained weights with ``load_state_dict``
+    or ``load_pretrained``."""
     if cfg.type not in ("uflow", "uflow_prob", "component"):
         item = _NOT_PORTED.get(cfg.type, "model families")
         raise NotImplementedError(
             f"model type {cfg.type!r} is not ported yet: ROADMAP.md queue 1, "
             f"'{item}'")
-    if cfg.get("dtype") not in (None, "float32", "f32"):
-        raise NotImplementedError(
-            f"model.dtype {cfg.get('dtype')!r} is not ported yet: ROADMAP.md "
-            "queue 1, 'config switches' (model.dtype)")
+    dtype = parse_dtype(cfg.get("dtype"))
     dev = resolve_device(device)
     common = dict(feature_norm=cfg.get("feature_norm", True),
-                  level_dropout=cfg.get("level_dropout", 0.0))
+                  level_dropout=cfg.get("level_dropout", 0.0), dtype=dtype)
     if cfg.type == "uflow":
         model = PWCFlow(**common)
     else:

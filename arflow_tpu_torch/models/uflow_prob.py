@@ -31,6 +31,11 @@ direction) group of that pass draws its own whole-level keep from the
 ``generator``, as the JAX model's ``num_groups`` draws do. Module and
 ``state_dict`` keys are the reference's.
 
+``dtype=torch.bfloat16`` runs the flow network in bfloat16 as ``PWCFlow``
+does (``models/uflow.py``), its outputs cast back to float32 after the
+log-diagonal clamp; ``ComponentNet`` passes it to both nets, and
+``MixtureWeightsNet`` stays float32, as in the JAX package.
+
 Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
 """
 
@@ -47,6 +52,7 @@ from arflow_tpu_torch.models.layers import (
     conv2d,
     conv_transpose2d,
     leaky_relu,
+    remat_region,
 )
 from arflow_tpu_torch.models.uflow import (
     CONTEXT_CHANNELS,
@@ -85,8 +91,10 @@ class PWCProbFlow(nn.Module):
 
     def __init__(self, out_channels=(2, 2, 0), inv_cov: bool = False,
                  n_pyramids: int = 1, feature_norm: bool = True,
-                 level_dropout: float = 0.0, mixture_weights: bool = False):
+                 level_dropout: float = 0.0, mixture_weights: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.out_channels = tuple(int(c) for c in out_channels)
         self.inv_cov = inv_cov
         self.n_pyramids = n_pyramids
@@ -95,7 +103,7 @@ class PWCProbFlow(nn.Module):
         self.diag_bias = -math.log(2) if inv_cov else math.log(2)
         l_ch, m_ch, n_ch = self.out_channels
         self._feature_pyramid_extractor = nn.ModuleList(
-            PWCFeaturePyramid() for _ in range(n_pyramids))
+            PWCFeaturePyramid(dtype) for _ in range(n_pyramids))
 
         # Every level sees [context_up, out_up (L+M), one cost volume per
         # flow pair, features1]; the coarsest one zeros and the log-diagonal
@@ -109,22 +117,24 @@ class PWCProbFlow(nn.Module):
             cin = cin0
             layers = nn.ModuleList()
             for c in FLOW_DECODER_FILTERS:
-                layers.append(nn.Sequential(conv2d(cin, c),
+                layers.append(nn.Sequential(conv2d(cin, c, dtype=dtype),
                                             nn.LeakyReLU(LEAKY_ALPHA)))
                 cin += c
             out = sum(self.out_channels) if level == 1 else l_ch + m_ch
-            layers.append(conv2d(ctx, out))
+            layers.append(conv2d(ctx, out, dtype=dtype))
             self._flow_layers.append(layers)
         # As in PWCFlow, level 0's deconv is built and never applied.
         self._context_up_layers = nn.ModuleList(
-            conv_transpose2d(ctx, CONTEXT_CHANNELS) for _ in range(NUM_LEVELS))
+            conv_transpose2d(ctx, CONTEXT_CHANNELS, dtype=dtype)
+            for _ in range(NUM_LEVELS))
 
         refine = []
         cin = ctx + sum(self.out_channels)
         for c, d in REFINEMENT_FILTERS:
-            refine += [conv2d(cin, c, 3, dilation=d), nn.LeakyReLU(LEAKY_ALPHA)]
+            refine += [conv2d(cin, c, 3, dilation=d, dtype=dtype),
+                       nn.LeakyReLU(LEAKY_ALPHA)]
             cin = c
-        refine.append(conv2d(cin, sum(self.out_channels)))
+        refine.append(conv2d(cin, sum(self.out_channels), dtype=dtype))
         self._refine_model = nn.Sequential(*refine)
         self.mixture_weights = mixture_weights
         if mixture_weights:
@@ -148,8 +158,9 @@ class PWCProbFlow(nn.Module):
 
     def forward_2_frames(self, fp1: list, fp2: list, generator=None,
                          num_groups: int = 1) -> list:
-        """Coarse-to-fine outputs between two feature pyramids, NCHW, finest
-        first: [full, 1/2, 1/4 (refined, clamped), 1/8, 1/16, 1/32]. With
+        """Coarse-to-fine outputs between two feature pyramids, NCHW,
+        float32, finest first: [full, 1/2, 1/4 (refined, clamped), 1/8,
+        1/16, 1/32]. With
         ``generator``, level dropout draws from it, one keep per each of
         the batch's ``num_groups`` groups at each level and the refinement."""
         l_ch, m_ch, _ = self.out_channels
@@ -166,25 +177,9 @@ class PWCProbFlow(nn.Module):
                                        -(NUM_LEVELS - 3) * self.diag_bias)], dim=1)
                 context_up = features1.new_zeros((b, CONTEXT_CHANNELS, h, w))
 
-            # One cost volume per flow pair. The first level's flow is zero,
-            # and warping by zero is the identity.
-            costs = []
-            for k in range(l_ch // 2):
-                warped2 = (features2 if first else
-                           resample(features2, flow_to_warp(out_up[:, 2 * k:2 * k + 2])))
-                f1n, w2n = features1, warped2
-                if self.feature_norm:
-                    f1n, w2n = normalize_features(features1, warped2)
-                costs.append(leaky_relu(
-                    compute_cost_volume(f1n, w2n, MAX_DISPLACEMENT)))
-
-            x = torch.cat([context_up, out_up, *costs, features1], dim=1)
-            hidden = self._flow_layers[level][:-1]
-            for i, layer in enumerate(hidden):
-                context = layer(x)
-                if i + 1 < len(hidden):
-                    x = torch.cat([x, context], dim=1)
-            out = self._flow_layers[level][-1](context)
+            context, out = remat_region(self._estimate, level, first,
+                                        features1, features2, out_up,
+                                        context_up)
             context, out = level_dropout([context, out], self.level_dropout,
                                          generator, num_groups)
             # Level 1 adds the N extras: the propagated groups get zeros.
@@ -196,7 +191,7 @@ class PWCProbFlow(nn.Module):
 
         # Level 1's output already holds all L+M+N channels.
         (refinement,) = level_dropout(
-            [self._refine_model(torch.cat([context, out], dim=1))],
+            [remat_region(self._refine_model, torch.cat([context, out], dim=1))],
             self.level_dropout, generator, num_groups)
         refined = out + refinement
         log_diag = refined[:, l_ch:l_ch + m_ch]
@@ -206,7 +201,32 @@ class PWCProbFlow(nn.Module):
                              refined[:, l_ch + m_ch:]], dim=1)
         outs.insert(0, self.upsample_out(outs[0]))
         outs.insert(0, self.upsample_out(outs[0]))
+        if self.compute_dtype is not None:
+            outs = [o.to(torch.float32) for o in outs]
         return outs
+
+    def _estimate(self, level, first, features1, features2, out_up,
+                  context_up):
+        """One level's (context, out) before dropout: one cost volume per
+        flow pair of ``out_up`` (the first level's flow is zero, and warping
+        by zero is the identity) and the dense-net decoder."""
+        costs = []
+        for k in range(self.out_channels[0] // 2):
+            warped2 = (features2 if first else
+                       resample(features2, flow_to_warp(out_up[:, 2 * k:2 * k + 2])))
+            f1n, w2n = features1, warped2
+            if self.feature_norm:
+                f1n, w2n = normalize_features(features1, warped2)
+            costs.append(leaky_relu(
+                compute_cost_volume(f1n, w2n, MAX_DISPLACEMENT)))
+
+        x = torch.cat([context_up, out_up, *costs, features1], dim=1)
+        hidden = self._flow_layers[level][:-1]
+        for i, layer in enumerate(hidden):
+            context = layer(x)
+            if i + 1 < len(hidden):
+                x = torch.cat([x, context], dim=1)
+        return context, self._flow_layers[level][-1](context)
 
     def flows_cat(self, groups: list) -> list:
         """Per-pyramid output lists -> one list, concatenated groupwise."""
@@ -281,10 +301,12 @@ class ComponentNet(nn.Module):
 
     def __init__(self, inv_cov: bool = False, feature_norm: bool = True,
                  level_dropout: float = 0.0, out_channels=(2, 2, 0),
-                 n_pyramids: int = 1, mixture_weights: bool = False):
+                 n_pyramids: int = 1, mixture_weights: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         kwargs = dict(out_channels=(2, 2, 0), inv_cov=inv_cov,
-                      feature_norm=feature_norm, level_dropout=level_dropout)
+                      feature_norm=feature_norm, level_dropout=level_dropout,
+                      dtype=dtype)
         self.pwcnet1 = PWCProbFlow(**kwargs)
         self.pwcnet2 = PWCProbFlow(**kwargs)
         # As in the JAX model, ``out_channels`` and ``n_pyramids`` size only

@@ -5,6 +5,12 @@
 goes to the hand-written kernel, a CPU tensor to the plain version, forward
 and backward (``ops/cuda/cost_volume.py`` registers the op and holds both).
 There is no switch and no fallback.
+
+bfloat16 features take the JAX package's float32 round trip
+(``arflow_tpu/ops/cost_volume.py:74-98``): they are cast to float32, the op
+runs its float32 kernel, and the result is cast back. The casts sit outside
+the op, so autograd casts the gradient back to bfloat16 and the backward
+kernel also runs in float32. The op itself takes float32 only.
 """
 
 from __future__ import annotations
@@ -20,7 +26,12 @@ from arflow_tpu_torch.ops.cuda.cost_volume import (  # noqa: F401
 def compute_cost_volume(features1: torch.Tensor, features2: torch.Tensor,
                         max_displacement: int = 4) -> torch.Tensor:
     """(B,C,H,W) x (B,C,H,W) -> (B,(2md+1)**2,H,W), channel mean of the
-    shifted products, dy-major."""
+    shifted products, dy-major; in float32 for bfloat16 inputs, whose
+    result is cast back to bfloat16."""
+    if features1.dtype == torch.bfloat16:
+        return torch.ops.arflow.cost_volume(
+            features1.to(torch.float32), features2.to(torch.float32),
+            int(max_displacement)).to(torch.bfloat16)
     return torch.ops.arflow.cost_volume(features1, features2,
                                         int(max_displacement))
 

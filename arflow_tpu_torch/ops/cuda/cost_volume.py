@@ -143,7 +143,8 @@ def _check(name: str, f1: torch.Tensor, f2: torch.Tensor, md: int) -> None:
     if f1.dtype != torch.float32 or f2.dtype != torch.float32:
         raise TypeError(
             f"{name} kernel takes float32, got {f1.dtype}/{f2.dtype} "
-            "(bf16 comes with the model.dtype roadmap item)")
+            "(bfloat16 features reach it only through the float32 round "
+            "trip of ops/cost_volume.py:compute_cost_volume)")
     if f1.dim() != 4 or f1.shape != f2.shape:
         raise ValueError(
             f"{name} kernel needs equal (B,C,H,W) shapes, got "

@@ -38,12 +38,19 @@ def mask_invalid(coords: torch.Tensor) -> torch.Tensor:
 def resample(source: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear sample of ``source`` (B,C,H,W) at pixel ``coords`` (B,2,Hq,Wq).
 
-    Taps outside the image read zero. ``grid_sample`` takes coordinates
+    Taps outside the image read zero. A bfloat16 ``source`` is sampled in
+    float32 at the coordinates as given (bfloat16 ones rounded as the JAX
+    package's are) and the result cast back: the JAX package gathers the
+    taps itself, where ``grid_sample`` in bfloat16 would round the
+    normalized coordinates once more. ``grid_sample`` takes coordinates
     normalized by ``2x/(S-1) - 1``, which has no inverse when a side S is 1
     (it would send every x to column 0). Such a side is padded with one zero
     column or row first: that pixel is exactly the zero an outside tap
     reads, so the result is unchanged and the normalization is defined.
     """
+    if source.dtype == torch.bfloat16:
+        return resample(source.to(torch.float32),
+                        coords.to(torch.float32)).to(torch.bfloat16)
     h, w = source.shape[-2], source.shape[-1]
     pad_h, pad_w = int(h == 1), int(w == 1)
     if pad_h or pad_w:

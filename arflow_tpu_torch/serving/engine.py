@@ -34,6 +34,12 @@ _NOT_PORTED = (
     "streaming for model type {!r} is not ported yet: ROADMAP.md queue 1, "
     "'serving' (the 3-frame PWC-Lite window)"
 )
+# The JAX engine has no streaming for ComponentNet either: two nets, each
+# with its own pyramid, and no pyramid attribute to split at.
+COMPONENT_NOT_STREAMED = (
+    "streaming is not available for model type 'component' (two "
+    "PWCProbFlow nets, each with its own pyramid), in this package as in the "
+    "JAX one: use the monolithic forward or its export")
 
 
 class StreamingFlowEngine:
@@ -55,6 +61,8 @@ class StreamingFlowEngine:
                  device="cuda", loss_cfg=None):
         from arflow_tpu_torch.models import get_model
 
+        if model_cfg.type == "component":
+            raise NotImplementedError(COMPONENT_NOT_STREAMED)
         if model_cfg.type not in ("uflow", "uflow_prob"):
             raise NotImplementedError(_NOT_PORTED.format(model_cfg.type))
         if model_cfg.get("mixture_weights"):

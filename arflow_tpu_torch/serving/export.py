@@ -29,11 +29,14 @@ shape arithmetic, the Python loop over anti-diagonals of
 graph. Strict export would trace the same code through TorchDynamo's
 bytecode analysis, which adds nothing for such code but its failure modes.
 
-The ``mixture`` entropy draws its Monte-Carlo samples from a generator
-seeded 0 on every call in the eager engine; ``torch.export`` cannot trace a
-``torch.Generator``, so the draws are made once at export time with seed 0
-on the export device and kept as constants of the program: its entropy
-equals the eager engine's. They hold 100 × B × H × W × 2 floats.
+The ``mixture`` entropy's Monte-Carlo samples are drawn inside the
+program, at run time, from a counter-based hash of seed 0
+(``utils/gmm.py:hash_draws``): ``torch.export`` cannot trace a
+``torch.Generator``, and draws kept as constants would hold
+100 × B × H × W × 2 floats. The artifact holds the weights and its graph,
+whatever H × W. Its entropy equals ``extract_uv_entropy`` of the eager
+outputs with ``mixture_hash_draws(k, B, (H, W))`` injected; the eager
+entry points draw from a generator seeded 0.
 """
 
 from __future__ import annotations
@@ -53,25 +56,18 @@ from arflow_tpu_torch.serving.engine import _NOT_PORTED
 _MAGIC = b"AFX1"
 
 
+# The seed of the mixture entropy's hashed draws in a program.
+DRAW_SEED = 0
+
+
 class _Entropy(torch.nn.Module):
     """``extract_uv_entropy`` of the forward flows, or zeros without an
-    ``approx``; the ``mixture`` draws as buffers (seed 0, export time)."""
+    ``approx``; the ``mixture`` draws hashed in the program
+    (``DRAW_SEED``)."""
 
-    def __init__(self, loss_cfg, batch, size_hw, device):
+    def __init__(self, loss_cfg):
         super().__init__()
-        from arflow_tpu_torch.utils.gmm import mixture_draws
-
         self.loss_cfg = loss_cfg if loss_cfg and "approx" in loss_cfg else None
-        self.has_draws = False
-        if self.loss_cfg is not None and self.loss_cfg.approx == "mixture":
-            k = self.loss_cfg.n_components
-            weights = torch.ones((batch, k), device=device) / k
-            draws = mixture_draws(
-                weights, size_hw,
-                generator=torch.Generator(device=device).manual_seed(0))
-            self.register_buffer("z", draws["z"])
-            self.register_buffer("eps", draws["eps"])
-            self.has_draws = True
 
     def forward(self, flows, res):
         from arflow_tpu_torch.training.entropy import extract_uv_entropy
@@ -79,18 +75,18 @@ class _Entropy(torch.nn.Module):
         pred = flows[0][..., 0:2]
         if self.loss_cfg is None:
             return torch.zeros_like(pred)
-        draws = {"z": self.z, "eps": self.eps} if self.has_draws else None
-        return extract_uv_entropy(flows, self.loss_cfg, res, draws=draws)
+        return extract_uv_entropy(flows, self.loss_cfg, res,
+                                  draws={"hash_seed": DRAW_SEED})
 
 
 class InferenceModule(torch.nn.Module):
     """The serving forward: NHWC ``(img1, img2)`` -> ``(flow, entropy)``,
     both (B,H,W,2), as ``inference_main`` computes them."""
 
-    def __init__(self, model, loss_cfg, batch, size_hw, device):
+    def __init__(self, model, loss_cfg):
         super().__init__()
         self.model = model
-        self.entropy = _Entropy(loss_cfg, batch, size_hw, device)
+        self.entropy = _Entropy(loss_cfg)
 
     def forward(self, img1, img2):
         res = self.model(img1, img2, with_bk=False)
@@ -125,10 +121,10 @@ class PyramidModule(torch.nn.Module):
 class DecodeModule(torch.nn.Module):
     """``decode(fp_prev, fp_cur)`` -> ``(flow, entropy)`` of the pair."""
 
-    def __init__(self, model, loss_cfg, batch, size_hw, device):
+    def __init__(self, model, loss_cfg):
         super().__init__()
         self.model = _part(model, lambda name: name != _PYRAMID)
-        self.entropy = _Entropy(loss_cfg, batch, size_hw, device)
+        self.entropy = _Entropy(loss_cfg)
 
     def forward(self, fp_prev, fp_cur):
         flows = [f.permute(0, 2, 3, 1) for f in self.model.decode(fp_prev, fp_cur)]
@@ -145,12 +141,10 @@ def _check_model(model_cfg):
         raise ValueError(f"export: {MIXTURE_NEEDS_BK}")
 
 
-def build_inference_fn(cfg, state_dict, batch: int = 1, size_hw=(384, 640),
-                       device="cuda") -> InferenceModule:
+def build_inference_fn(cfg, state_dict, device="cuda") -> InferenceModule:
     """The serving forward of ``cfg`` (its ``model`` and ``loss`` sections)
     with ``state_dict`` loaded strictly, on ``device``, in eval mode. The
-    entropy is zeros where the loss section has no ``approx``; ``batch``
-    and ``size_hw`` size the ``mixture`` draws."""
+    entropy is zeros where the loss section has no ``approx``."""
     from arflow_tpu_torch.device import resolve_device
     from arflow_tpu_torch.models import get_model
 
@@ -158,8 +152,7 @@ def build_inference_fn(cfg, state_dict, batch: int = 1, size_hw=(384, 640),
     dev = resolve_device(device)
     model = get_model(cfg.model, device="cpu")
     model.load_state_dict(state_dict, strict=True)
-    return InferenceModule(model, cfg.get("loss"), batch, size_hw,
-                           dev).to(dev).eval()
+    return InferenceModule(model, cfg.get("loss")).to(dev).eval()
 
 
 def _frame(batch, h, w, device):
@@ -184,7 +177,7 @@ def export_inference(cfg, state_dict, batch: int, size_hw, *, device="cuda"):
     ``(batch, H, W, 3)`` float32 images in [0, 1], on ``device``. Returns
     ``(ExportedProgram, meta)`` for ``save_artifact``."""
     h, w = int(size_hw[0]), int(size_hw[1])
-    module = build_inference_fn(cfg, state_dict, batch, (h, w), device)
+    module = build_inference_fn(cfg, state_dict, device)
     dev = next(module.parameters()).device
     ep = _export(module, (_frame(batch, h, w, dev), _frame(batch, h, w, dev)))
     return ep, _meta(cfg, module.entropy.loss_cfg is not None, batch, h, w, dev)
@@ -204,7 +197,7 @@ def export_streaming(cfg, state_dict, batch: int, size_hw, *, device="cuda"):
     pyramid = PyramidModule(model)
     with torch.no_grad():
         fps = [pyramid(_frame(batch, h, w, dev)) for _ in range(2)]
-    decode = DecodeModule(model, cfg.get("loss"), batch, (h, w), dev).to(dev)
+    decode = DecodeModule(model, cfg.get("loss")).to(dev)
     exported = {"pyramid": _export(pyramid, (_frame(batch, h, w, dev),)),
                 "decode": _export(decode, tuple(fps))}
     meta = _meta(cfg, decode.entropy.loss_cfg is not None, batch, h, w, dev)

@@ -1,7 +1,8 @@
 """Checkpoints of the port: ``.pth.tar`` files written with ``torch.save``.
 
 A checkpoint holds ``{"state_dict", "epoch", "i_iter", "best_error",
-"optimizer", "opt_count", "generator"}``:
+"optimizer", "opt_count", "generator"}``, and ``"nan_skips"`` where
+``train.nan_revert`` is on:
 
 - ``state_dict``: the model's, with the reference's keys, on the CPU, so
   the port's ``load_pretrained``, the JAX package's ``.pth.tar`` importer
@@ -10,7 +11,8 @@ A checkpoint holds ``{"state_dict", "epoch", "i_iter", "best_error",
 - ``opt_count``: the steps the learning-rate schedule has counted;
 - ``generator``: the ``get_state()`` of the trainer's generator, which
   level dropout (and the ELBO loss's Monte-Carlo noise) draw from;
-- the counters ``epoch``, ``i_iter`` and ``best_error``, for resume.
+- the counters ``epoch``, ``i_iter``, ``best_error`` and ``nan_skips``
+  (the steps ``nan_revert`` reverted; 0 where absent), for resume.
 
 ``load_jax_checkpoint`` reads the JAX package's msgpack checkpoints (the
 flax ``msgpack_serialize`` format) with the ``msgpack`` package alone, for
@@ -101,7 +103,7 @@ def load_jax_checkpoint(path: str) -> dict:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: the JAX package's orbax checkpoints are not ported yet: "
-            "ROADMAP.md queue 1, 'factories and the CLI surface' (item 8)")
+            "ROADMAP.md queue 1, 'factories and the CLI surface'")
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return _unchunk(tree)

@@ -29,8 +29,8 @@ def extract_uv_entropy(flows, loss_cfg, res_dict=None,
     """flows: the model's forward outputs, full resolution first, NHWC.
 
     ``mixture`` draws its 100 Monte-Carlo samples from ``generator`` (one
-    seeded 0 if none is given), or takes them from ``draws``, a dict with
-    ``z`` and ``eps`` as ``mixture_entropy`` takes them.
+    seeded 0 if none is given), or takes them from ``draws``, a dict of
+    ``mixture_entropy``'s ``z`` and ``eps``, or its ``hash_seed``.
     """
     approx = loss_cfg.approx
     if approx == "diag":

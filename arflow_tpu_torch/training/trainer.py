@@ -14,31 +14,42 @@ draw from, and the epoch, iteration and best-error counters. ``train.resume`` re
 run continues an unbroken one bit for bit where the data is the same (the
 augmentation's draws are not in a checkpoint, in either package).
 
-What the JAX trainer does and this one does not yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item, at the point where
-it would take effect: the device mesh, ``remat``, ``nan_revert`` and the
-``stage1`` loss switch. Scalar summaries go to the logger and to
-``events.jsonl`` in ``save_root`` (and TensorBoard where it imports),
-opened at the first scalar; image summaries are not written.
+The JAX trainer's switches:
+
+- ``train.nan_revert``: a step whose loss or any gradient is not finite
+  changes nothing: no optimizer update (parameters, Adam moments and the
+  schedule's count stay), and the BatchNorm running statistics that its
+  forward updated are restored from a copy taken before it. The step
+  counts in ``nan_skips``, and the flush warns instead of raising. It costs
+  one read of a device flag per step.
+- ``train.remat``: the model forward runs in
+  ``models.layers.rematerialized()``: each pyramid level, decoder level and
+  the refinement is checkpointed with the JAX package's ``dots_saveable``
+  policy (convolution outputs kept, the rest recomputed in the backward,
+  one region at a time). Level dropout draws outside the regions, so the
+  masks are drawn once.
+- ``stage1``: at the first epoch >= ``stage1.epoch``, ``stage1.loss``
+  updates the loss's config, once; a resume past that epoch applies it too.
+
+The device mesh raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item. Scalar summaries go to the logger and to ``events.jsonl`` in
+``save_root`` (and TensorBoard where it imports), opened at the first
+scalar; image summaries are not written.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from arflow_tpu_torch.models import load_pretrained
+from arflow_tpu_torch.models.layers import rematerialized
 from arflow_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from arflow_tpu_torch.training.optim import create_optimizer
 from arflow_tpu_torch.utils.summary import SummaryWriter
-
-# cfg.train keys the port's trainer cannot honour yet -> their ROADMAP.md item.
-_NOT_PORTED = {
-    "remat": "queue 1, 'config switches' (train.remat)",
-    "nan_revert": "queue 1, 'config switches' (train.nan_revert)",
-}
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -52,9 +63,6 @@ class BaseTrainer:
         if mesh is not None:
             raise not_ported("training on a device mesh",
                              "queue 1, 'parallel'")
-        for key, item in _NOT_PORTED.items():
-            if cfg.get(key):
-                raise not_ported(f"train.{key}", item)
         if cfg.get("checkpoint_backend") == "orbax":
             raise ValueError(
                 "checkpoint_backend 'orbax' belongs to the JAX package "
@@ -79,6 +87,8 @@ class BaseTrainer:
         self.generator = None
         self._resume_ckpt = None  # read by train(), applied at the first batch
         self._pending_metrics = []  # (i_iter, i_step, batch size, device row)
+        self.nan_skips = 0  # steps reverted by nan_revert
+        self._stage1_fired = False
 
     # -- init ---------------------------------------------------------------
 
@@ -115,9 +125,46 @@ class BaseTrainer:
         self.optimizer.optimizer.load_state_dict(ckpt["optimizer"])
         self.optimizer.count = int(ckpt["opt_count"])
         self.generator.set_state(ckpt["generator"])
+        self.nan_skips = int(ckpt.get("nan_skips", 0))
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    # -- the step ---------------------------------------------------------------
+
+    def _step(self, forward, loss_of) -> dict:
+        """One optimizer step: the model's outputs ``forward(generator)``
+        (level dropout drawing from the trainer's generator), the loss terms
+        ``loss_of(outputs)`` (a dict with ``'total'``), the backward and the
+        update, with ``nan_revert`` and ``remat`` as the module's docstring
+        says. Returns the loss terms."""
+        revert = bool(self.cfg.get("nan_revert"))
+        before = [b.clone() for b in self.model.buffers()] if revert else None
+        with (rematerialized() if self.cfg.get("remat")
+              else contextlib.nullcontext()):
+            res = forward(self.generator)
+        out = loss_of(res)
+        self.optimizer.zero_grad()
+        out["total"].backward()
+        if revert and not self._finite(out["total"]):
+            with torch.no_grad():
+                for b, old in zip(self.model.buffers(), before):
+                    b.copy_(old)
+            self.optimizer.zero_grad()
+            self.nan_skips += 1
+        else:
+            self.optimizer.step()
+        return out
+
+    def _finite(self, total: torch.Tensor) -> bool:
+        """Whether ``total`` and every parameter's gradient are finite: one
+        read of a device flag."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flags = torch.isfinite(total.detach()).reshape(1)
+        if grads:
+            norms = torch.stack(torch._foreach_norm(grads, float("inf")))
+            flags = torch.cat([flags, torch.isfinite(norms)])
+        return bool(flags.all())
 
     def _run_one_epoch(self):
         raise NotImplementedError
@@ -175,17 +222,28 @@ class BaseTrainer:
             "opt_count": self.optimizer.count,
             "generator": self.generator.get_state(),
         }
+        if self.cfg.get("nan_revert"):  # as the JAX state has it
+            state["nan_skips"] = self.nan_skips
         save_checkpoint(self.save_root, state, name, is_best)
 
     def _begin_epoch(self):
-        """Pin the loader's shuffle order to the epoch; refuse a ``stage1``
-        loss switch that is due."""
+        """Pin the loader's shuffle order to the epoch; apply a due
+        ``stage1`` loss switch."""
         if hasattr(self.train_loader, "set_epoch"):
             self.train_loader.set_epoch(self.i_epoch)
+        self._maybe_stage1()
+
+    def _maybe_stage1(self):
+        """The scheduled loss-config switch: ``>=`` with a fired flag, as
+        the JAX trainer has it, so that a run resumed past the switch epoch
+        applies it too."""
         stage1 = (self.full_cfg or {}).get("stage1")
-        if stage1 is not None and self.i_epoch >= stage1.epoch:
-            raise not_ported("the stage1 loss switch",
-                             "queue 1, 'main-path entry points'")
+        if (stage1 is not None and not self._stage1_fired
+                and self.i_epoch >= stage1.epoch):
+            self._stage1_fired = True
+            self.loss_func.cfg.update(stage1.loss)
+            self._log.info("=> stage1: loss config updated with %s at epoch %d",
+                           dict(stage1.loss), self.i_epoch)
 
     def _summary(self, tag, value, step):
         self._log.info("summary %s %.6g at %d", tag, value, step)
@@ -210,6 +268,14 @@ class BaseTrainer:
         rows = torch.stack([m for *_, m in self._pending_metrics]).cpu().tolist()
         for (it, step, n, _), row in zip(self._pending_metrics, rows):
             if not np.isfinite(row[0]):
+                if self.cfg.get("nan_revert"):
+                    # _step did not apply it; the row stays out of the
+                    # meters.
+                    self._log.warning(
+                        "non-finite training loss (%s) at iter %d (epoch %d, "
+                        "step %d): update reverted (nan_revert)", row[0], it,
+                        self.i_epoch, step)
+                    continue
                 raise FloatingPointError(
                     f"non-finite training loss ({row[0]}) at iter {it} "
                     f"(epoch {self.i_epoch}, step {step})"

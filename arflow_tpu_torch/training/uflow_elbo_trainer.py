@@ -50,12 +50,11 @@ class UFlowElboTrainer(UFlowTrainer):
     def train_step(self, img1, img2) -> torch.Tensor:
         """One optimizer step on device tensors (NHWC). Returns the step's
         ``METRIC_KEYS`` as one detached device tensor."""
-        res = self.model(img1, img2, with_bk=True, train=True,
-                         generator=self.generator)
-        out = self.loss_func(res, img1, img2, generator=self.generator)
-        self.optimizer.zero_grad()
-        out["total"].backward()
-        self.optimizer.step()
+        out = self._step(
+            lambda gen: self.model(img1, img2, with_bk=True, train=True,
+                                   generator=gen),
+            lambda res: self.loss_func(res, img1, img2,
+                                       generator=self.generator))
         return torch.stack([out[k].detach() for k in METRIC_KEYS])
 
     @torch.no_grad()

@@ -43,12 +43,10 @@ class UFlowTrainer(BaseTrainer):
     def train_step(self, img1, img2, img1_ph, img2_ph) -> torch.Tensor:
         """One optimizer step on device tensors (NHWC). Returns the step's
         ``METRIC_KEYS`` as one detached device tensor."""
-        res = self.model(img1_ph, img2_ph, with_bk=True, train=True,
-                         generator=self.generator)
-        out = self.loss_func(res, img1, img2)
-        self.optimizer.zero_grad()
-        out["total"].backward()
-        self.optimizer.step()
+        out = self._step(
+            lambda gen: self.model(img1_ph, img2_ph, with_bk=True, train=True,
+                                   generator=gen),
+            lambda res: self.loss_func(res, img1, img2))
         return torch.stack([out[k].detach() for k in METRIC_KEYS])
 
     def _run_one_epoch(self):

@@ -30,7 +30,15 @@ eager model with 4 cost-volume launches per forward (phase export);
 ``stream_cli`` over 24 PNG frames with ``-c/-m``, ``--bw`` and
 ``--artifact`` held to ``StreamingFlowEngine.push`` (phase stream_cli);
 ``fit_penalty_cli`` for both penalties on a Chairs2-format directory
-(phase fit_penalty). It checks the outputs, and
+(phase fit_penalty); and the config switches: ``model.dtype`` bfloat16
+(phase bf16: the 384x640 b8 forward beside float32 from one set of weights,
+with the conv FLOPs and the top kernels of each, the kernel against the
+plain cost volume behind the same float32 round trip, the round trip's
+casts, setup (a) at 448x1024 b8 with its entropy, the b1 stream, an
+artifact, and the uflow and ELBO (a) train steps beside float32) and the
+trainer switches (phase train_switches: ``nan_revert`` on a NaN batch,
+``remat`` against the plain step with level dropout on, with the peak
+memory of each, and ``stage1``). It checks the outputs, and
 times the kernels, the forwards, the streams, the train steps and the
 entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
@@ -67,7 +75,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from arflow_tpu_torch import load_config
+from arflow_tpu_torch import Config, load_config
 from arflow_tpu_torch.cli import (
     evaluate_flo_cli,
     fit_penalty_cli,
@@ -2894,6 +2902,537 @@ def phase_serving_tools(dev, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# model.dtype bfloat16 and the trainer switches (phases bf16, train_switches)
+
+PEAK_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak, same data sheet
+# bf16 against float32, mean relative gap per output level, as
+# tests/test_mixed_precision.py:35 holds the JAX package's.
+BF16_REL = 0.05
+# A bf16 step against the float32 step from the same weights and draws.
+# At random weights a bf16 step's gradients are mostly rounding noise (the
+# CPU tests at 64x96: losses 4.3e-4 and 6.3e-5 apart relative, gradient
+# cosines 0.67 and 0.52 for the uflow and ELBO steps), so the loss is held
+# within 1e-2 and the gradients only in direction.
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_COS = 0.3
+# remat against the plain step, same weights and draws, deterministic cuDNN:
+# the gradients' relative L2 gap (the recomputed forward runs the same ops;
+# the atomics of grid_sample's and index_add's backward reorder sums).
+REMAT_GRAD_RTOL = 1e-4
+# The parameters after that step, in learning rates: Adam's first step moves
+# each by about lr, so a gradient's sign flipped by reordered sums moves a
+# parameter by up to 2 lr (measured: up to 0.08 lr on an H100 80GB HBM3).
+REMAT_PARAM_LRS = 0.5
+SWITCH_DROPOUT = 0.5  # level dropout of the remat check: levels do drop
+
+
+def conv_flops(model, *args, **kwargs) -> int:
+    """Floating-point operations (2 per multiply-add) of every conv and
+    deconv in one call ``model(*args, **kwargs)``, counted from the layer
+    shapes by forward hooks."""
+    total = [0]
+
+    def hook(m, inputs, out):
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            x = inputs[0]
+            total[0] += 2 * x.numel() * m.out_channels * m.weight[0, 0].numel()
+        else:
+            total[0] += 2 * out.numel() * m.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        with torch.inference_mode():
+            model(*args, **kwargs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def plain_round_trip(f1, f2, md=MD):
+    """The plain cost volume behind ``compute_cost_volume``'s float32 round
+    trip for bfloat16 features."""
+    if f1.dtype == torch.bfloat16:
+        return compute_cost_volume_reference(
+            f1.float(), f2.float(), md).to(torch.bfloat16)
+    return compute_cost_volume_reference(f1, f2, md)
+
+
+def mean_rel(a, b) -> float:
+    return float((a.double() - b).abs().mean() / b.double().abs().mean())
+
+
+def bf16_model_cfg(model_cfg):
+    return Config(dict(model_cfg, dtype="bfloat16"))
+
+
+def check_bf16_outputs(name, outs16, outs32):
+    """float32 outputs, finite, each level within BF16_REL of float32;
+    returns the per-level gaps."""
+    rel = [mean_rel(a, b) for a, b in zip(outs16, outs32)]
+    if not all(o.dtype == torch.float32 for o in outs16):
+        raise AssertionError(f"{name}: bf16 outputs not float32")
+    if not all(bool(torch.isfinite(o).all()) for o in outs16):
+        raise AssertionError(f"{name}: non-finite bf16 output")
+    if not max(rel) < BF16_REL:
+        raise AssertionError(f"{name}: bf16 vs float32 {rel} >= {BF16_REL}")
+    return rel
+
+
+def timed_pair(fn32, fn16, iters):
+    """CUDA-event ms of float32 and bf16 callables in turns (32, 16, 16,
+    32): the mean of each pair."""
+    a = cuda_ms(fn32, iters=iters)
+    b = cuda_ms(fn16, iters=iters)
+    b2 = cuda_ms(fn16, iters=iters)
+    a2 = cuda_ms(fn32, iters=iters)
+    return (a + a2) / 2, (b + b2) / 2, [a, b, b2, a2]
+
+
+def bf16_inference(cfg, dev, smi, gen):
+    """chairs_uflow.json's PWCFlow at 384x640 b8, float32 and bf16 from one
+    set of weights: outputs, the kernel against the plain round trip, the
+    conv FLOPs and their bound, maps/s and the top kernels of each."""
+    m32 = get_model(cfg.model, device=dev, seed=SEED)
+    m16 = get_model(bf16_model_cfg(cfg.model), device=dev)
+    m16.load_state_dict(m32.state_dict(), strict=True)
+    img1, img2 = shifted_pair(B, H, W, 2, 3, gen, dev)
+    torch.cuda.empty_cache()
+
+    def f32():
+        return m32(img1, img2, with_bk=False)["flows_fw"]
+
+    def f16():
+        return m16(img1, img2, with_bk=False)["flows_fw"]
+
+    with torch.inference_mode():
+        reset_launch_counts()
+        out16 = f16()
+        torch.cuda.synchronize()
+        launches = COST_VOLUME.launches
+        out32 = f32()
+        with mock.patch.object(uflow_module, "compute_cost_volume",
+                               plain_round_trip):
+            plain16 = f16()
+        torch.cuda.synchronize()
+        if COST_VOLUME.launches != 2 * launches:
+            raise AssertionError("bf16: the plain run launched the kernel")
+        rel = check_bf16_outputs("uflow b8", out16, out32)
+        scale = max(float(plain16[0].abs().max()), 1.0)
+        err_plain = max_abs(out16[0], plain16[0])
+        ms32, ms16, turns = timed_pair(f32, f16, iters=10)
+        prof32 = profile_window(f32, 3, ms32)
+        prof16 = profile_window(f16, 3, ms16)
+    flops = conv_flops(m16, img1, img2, with_bk=False)
+    bound_ms = 1e3 * flops / PEAK_BF16_FLOP_PER_S
+    row = {"phase": "bf16_inference", "shape": [B, H, W], "launches": launches,
+           "rel_gap_per_level_vs_f32": rel, "rel_bound": BF16_REL,
+           "kernel_vs_plain_round_trip_max_abs_err": err_plain,
+           "atol": FLOW_RTOL * scale,
+           "ms_per_batch_f32": ms32, "ms_per_batch_bf16": ms16,
+           "ms_turns_32_16_16_32": turns,
+           "maps_per_s_f32": B / (ms32 / 1e3), "maps_per_s_bf16": B / (ms16 / 1e3),
+           "conv_gflop": flops / 1e9, "conv_bound_ms_bf16": bound_ms,
+           "conv_bound_ms_f32": 1e3 * flops / PEAK_F32_FLOP_PER_S,
+           "conv_ms_f32": prof32["conv_ms_per_call"],
+           "conv_ms_bf16": prof16["conv_ms_per_call"],
+           "device_ms_f32": prof32["device_ms_per_call"],
+           "device_ms_bf16": prof16["device_ms_per_call"],
+           "cost_volume_ms_bf16": prof16["cost_volume_fwd_ms_per_call"],
+           "top5_kernels_f32": prof32["top_kernels"][:5],
+           "top5_kernels_bf16": prof16["top_kernels"][:5],
+           "card": smi}
+    emit(row)
+    if launches != 4:
+        raise AssertionError(f"bf16 forward launched the kernel {launches} times")
+    if not err_plain <= FLOW_RTOL * scale:
+        raise AssertionError(f"bf16 kernel vs plain round trip: {err_plain}")
+    return m32, m16, launches
+
+
+def bf16_casts(dev, smi):
+    """Device ms of the cost volume's float32 round trip at the b8 384x640
+    levels: both inputs to float32 and the output back to bf16, beside
+    the kernel itself on the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    cast_ms = kernel_ms = 0.0
+    for shape in level_shapes(B):
+        f1, f2 = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        out = cost_volume_kernel(f1.float(), f2.float(), MD)
+        cast_ms += graph_ms(lambda: (f1.float(), f2.float()))
+        cast_ms += graph_ms(lambda: out.to(torch.bfloat16))
+        a, b = f1.float(), f2.float()
+        kernel_ms += graph_ms(lambda: cost_volume_kernel(a, b, MD))
+    emit({"phase": "bf16_casts", "shape": [B, H, W], "cast_ms_per_forward": cast_ms,
+          "kernel_ms_per_forward": kernel_ms, "card": smi})
+    return cast_ms
+
+
+def bf16_prob(dev, smi, gen):
+    """Setup (a) at 448x1024 b8 with its entropy, float32 and bf16."""
+    cfg = prob_config(*PROB_SETUPS[0][1:])
+    m32 = prob_model(cfg, dev)
+    m16 = get_model(bf16_model_cfg(cfg.model), device=dev)
+    m16.load_state_dict(m32.state_dict(), strict=True)
+    img1, img2 = shifted_pair(PB, PH, PW, 2, 3, gen, dev)
+
+    def forward(model):
+        res = model(img1, img2, with_bk=False)
+        return res["flows_fw"][0][..., :2], entropy_of(res, cfg.loss, dev)
+
+    with torch.inference_mode():
+        reset_launch_counts()
+        flow16, ent16 = forward(m16)
+        torch.cuda.synchronize()
+        launches = COST_VOLUME.launches
+        flow32, ent32 = forward(m32)
+        rel = check_bf16_outputs("prob (a) b8", [flow16, ent16], [flow32, ent32])
+        ms32, ms16, turns = timed_pair(lambda: forward(m32), lambda: forward(m16),
+                                       iters=10)
+    emit({"phase": "bf16_prob_inference", "setup": "a", "shape": [PB, PH, PW],
+          "launches": launches, "rel_gap_flow_entropy_vs_f32": rel,
+          "ms_per_batch_f32": ms32, "ms_per_batch_bf16": ms16,
+          "ms_turns_32_16_16_32": turns,
+          "maps_per_s_f32": PB / (ms32 / 1e3), "maps_per_s_bf16": PB / (ms16 / 1e3),
+          "card": smi})
+    if launches != 4:
+        raise AssertionError(f"bf16 (a) launched the kernel {launches} times")
+    return launches
+
+
+def bf16_stream(cfg, m16, dev, smi, gen):
+    """The 2-frame engine at 384x640 b1 in bf16: flows float32 and equal to
+    the monolithic bf16 forward, flows/s beside the float32 engine's."""
+    m = 4 * STREAM_FRAMES
+    tex = texture(1, H + m, W + m, gen, dev)
+    seq = [tex[:, :, 2 * t:2 * t + H, 3 * t:3 * t + W].permute(0, 2, 3, 1).contiguous()
+           for t in range(STREAM_FRAMES)]
+    state = m16.state_dict()
+    engines = {dt: StreamingFlowEngine(
+        cfg.model if dt == "float32" else bf16_model_cfg(cfg.model), state,
+        device=dev) for dt in ("float32", "bfloat16")}
+    eng = engines["bfloat16"]
+    reset_launch_counts()
+    outs = [eng.push(f) for f in seq]
+    torch.cuda.synchronize()
+    launches = COST_VOLUME.launches
+    flows = [o["flow"] for o in outs if o is not None]
+    err, scale = 0.0, 1.0
+    with torch.inference_mode():
+        for t in (0, len(flows) - 1):
+            mono = m16(seq[t], seq[t + 1], with_bk=False)["flows_fw"][0]
+            err = max(err, max_abs(flows[t], mono))
+            scale = max(scale, float(mono.abs().max()))
+    rates = {}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        e = engines[dt]
+        for f in seq[:3]:
+            e.push(f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for f in seq:
+                e.push(f)
+        torch.cuda.synchronize()
+        rates.setdefault(dt, []).append(3 * STREAM_FRAMES / (time.perf_counter() - t0))
+    emit({"phase": "bf16_serving", "shape": [1, H, W], "launches": launches,
+          "flow_dtype": str(flows[0].dtype), "vs_monolithic_max_abs_err": err,
+          "atol": FLOW_RTOL * scale, "flows_per_s_f32": rates["float32"],
+          "flows_per_s_bf16": rates["bfloat16"], "card": smi})
+    if flows[0].dtype != torch.float32 or not err <= FLOW_RTOL * scale:
+        raise AssertionError(f"bf16 stream: {flows[0].dtype}, {err}")
+    if launches != 4 * (STREAM_FRAMES - 1):
+        raise AssertionError(f"bf16 stream launched the kernel {launches} times")
+    return launches
+
+
+def bf16_export(cfg, m16, dev, smi, gen):
+    """A bf16 monolithic artifact at 384x640 b1, saved, loaded and held to
+    the eager bf16 model; 4 launches per forward."""
+    from arflow_tpu_torch.serving.export import load_artifact
+
+    full = Config({"model": dict(cfg.model, dtype="bfloat16"), "loss": cfg.loss})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        path = os.path.join(tmp, "uflow_bf16.afx")
+        t0 = time.perf_counter()
+        ep, meta = export_inference(full, m16.state_dict(), 1, (H, W), device=dev)
+        save_artifact(path, ep, meta)
+        export_s = time.perf_counter() - t0
+        art = load_artifact(path)
+        img1, img2 = shifted_pair(1, H, W, 1, 2, gen, dev)
+        reset_launch_counts()
+        flow, _ = art(img1, img2)
+        torch.cuda.synchronize()
+        launches = COST_VOLUME.launches
+        with torch.inference_mode():
+            want = m16(img1, img2, with_bk=False)["flows_fw"][0]
+        err, scale = max_abs(flow, want), max(float(want.abs().max()), 1.0)
+        emit({"phase": "bf16_export", "shape": [1, H, W], "export_s": export_s,
+              "bytes": os.path.getsize(path), "launches": launches,
+              "flow_dtype": str(flow.dtype), "vs_eager_max_abs_err": err,
+              "atol": FLOW_RTOL * scale, "card": smi})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if flow.dtype != torch.float32 or launches != 4 or not err <= FLOW_RTOL * scale:
+        raise AssertionError(f"bf16 artifact: {flow.dtype}, {launches} launches, "
+                             f"{err} > {FLOW_RTOL * scale}")
+    return launches
+
+
+def step_gradients(model, forward_loss, gen_state, dev):
+    """(loss, {name: gradient}) of one step's loss from the dropout
+    generator state ``gen_state``."""
+    gen = torch.Generator(device=dev)
+    gen.set_state(gen_state)
+    model.zero_grad(set_to_none=True)
+    out = forward_loss(model, gen)
+    out["total"].backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(out["total"].detach()), grads
+
+
+def cosine(a, b) -> float:
+    return float(F.cosine_similarity(a.double(), b.double(), dim=0))
+
+
+def flat(grads) -> torch.Tensor:
+    return torch.cat([grads[n].flatten() for n in sorted(grads)])
+
+
+def bf16_step(tag, trainer_cls, cfg, forward_loss, inputs, batch, shape, dev, smi,
+              census):
+    """One step of ``cfg``'s model in float32 and bf16 from one set of
+    weights and draws: the loss within BF16_LOSS_RTOL, the gradients'
+    cosine at least BF16_GRAD_COS, the same parameters with gradients,
+    8 + 8 (uflow) or 4 + 4 (ELBO) launches; then each dtype's device ms
+    per ``train_step`` through ``trainer_cls``, in turns, and the bf16
+    step's profile (``train_step_profile`` with ``census``)."""
+    m32 = get_model(cfg.model, device=dev, seed=SEED)
+    m16 = get_model(bf16_model_cfg(cfg.model), device=dev)
+    m16.load_state_dict(m32.state_dict(), strict=True)
+    state = torch.Generator(device=dev).manual_seed(SEED).get_state()
+    loss32, g32 = step_gradients(m32, forward_loss, state, dev)
+    reset_launch_counts()
+    loss16, g16 = step_gradients(m16, forward_loss, state, dev)
+    launches = {k.name: k.launches for k in KERNELS}
+    finite = all(bool(torch.isfinite(g).all()) for g in g16.values())
+    loss_rel = abs(loss16 - loss32) / abs(loss32)
+    cos = cosine(flat(g16), flat(g32))
+    rel = rel_l2(flat(g16), flat(g32).double())
+    train_cfg = cfg.train.copy()
+    train_cfg.update(epoch_num=1, seed=SEED)
+    log = logging.getLogger("chip_smoke")
+    trainers = {dt: trainer_cls([inputs], None, m, get_loss(cfg.loss), log,
+                                os.path.join(REPO, "outputs", "chip_smoke"),
+                                train_cfg, model_cfg=cfg.model, full_cfg=cfg)
+                for dt, m in (("float32", m32), ("bfloat16", m16))}
+    args = trainers["float32"]._batch_inputs(inputs)
+    for t in trainers.values():
+        t._ensure_init()
+        for _ in range(2):
+            t.train_step(*args)
+    torch.cuda.synchronize()
+    ms32, ms16, turns = timed_pair(lambda: trainers["float32"].train_step(*args),
+                                   lambda: trainers["bfloat16"].train_step(*args),
+                                   iters=5)
+    grads_f32 = all(p.grad is None or p.grad.dtype == torch.float32
+                    for p in m16.parameters())
+    prof = train_step_profile(lambda: trainers["bfloat16"].train_step(*args), ms16,
+                              census=census)
+    emit({"phase": f"bf16_{tag}_profile", "shape": shape, **prof, "card": smi})
+    emit({"phase": f"bf16_{tag}", "shape": shape, "launches": launches,
+          "loss_f32": loss32, "loss_bf16": loss16, "loss_rel_gap": loss_rel,
+          "loss_rtol": BF16_LOSS_RTOL, "grad_cosine": cos, "grad_cos_bound": BF16_GRAD_COS,
+          "grad_rel_l2": rel, "params_with_grad": len(g16),
+          "grads_float32": grads_f32, "finite": finite,
+          "ms_per_step_f32": ms32, "ms_per_step_bf16": ms16,
+          "ms_turns_32_16_16_32": turns,
+          "samples_per_s_f32": batch * 1e3 / ms32,
+          "samples_per_s_bf16": batch * 1e3 / ms16, "card": smi})
+    if not (finite and grads_f32 and sorted(g16) == sorted(g32)
+            and loss_rel <= BF16_LOSS_RTOL and cos >= BF16_GRAD_COS):
+        raise AssertionError(f"bf16 {tag}: finite {finite}, float32 grads "
+                             f"{grads_f32}, loss {loss_rel}, cosine {cos}")
+    return launches
+
+
+def phase_bf16(cfg, dev, smi):
+    """``model.dtype`` bfloat16 on the card: the uflow b8 forward beside
+    float32 (``bf16_inference``) and the cost volume's casts, setup (a) b8
+    with its entropy, the b1 stream, an artifact, and the uflow and ELBO (a)
+    train steps beside float32. Returns the kernel's launches per part."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    m32, m16, launches_fwd = bf16_inference(cfg, dev, smi, gen)
+    del m32
+    bf16_casts(dev, smi)
+    launches = {"inference_b8": launches_fwd,
+                "prob_a_b8": bf16_prob(dev, smi, gen),
+                "stream_b1": bf16_stream(cfg, m16, dev, smi, gen),
+                "export_b1": bf16_export(cfg, m16, dev, smi, gen)}
+    del m16
+
+    loss_cfg = cfg.loss.copy()
+    loss_cfg.smooth_order = 1
+    ucfg = Config({**cfg, "loss": loss_cfg})
+    a, b = shifted_pair(TB, TH, TW, 1, 2, gen, dev)
+    x = {"img1": a, "img2": b, "img1_ph": (a * 1.1).clamp(0.0, 1.0),
+         "img2_ph": (b * 1.1).clamp(0.0, 1.0)}
+    loss = get_loss(ucfg.loss)
+
+    def uflow_loss(net, g):
+        res = net(x["img1_ph"], x["img2_ph"], with_bk=True, train=True, generator=g)
+        return loss(res, x["img1"], x["img2"])
+
+    launches["train_step"] = bf16_step("train_step", UFlowTrainer, ucfg,
+                                       uflow_loss, x, TB, [TB, TH, TW], dev, smi,
+                                       census=(uflow_loss_module, "census_loss"))
+    ecfg = prob_config(*ELBO_SETUPS[0][1:])
+    ea, eb = shifted_pair(EB, EH, EW, 1, 2, gen, dev)
+    noise = elbo_noise(ecfg.loss, EB, EH // 4, EW // 4, gen, dev)
+    eloss = get_loss(ecfg.loss)
+
+    def elbo_loss(net, g):
+        res = net(ea, eb, with_bk=True, train=True, generator=g)
+        return eloss(res, ea, eb, noise=noise)
+
+    launches["elbo_step"] = bf16_step("elbo_step", UFlowElboTrainer, ecfg, elbo_loss,
+                                      {"img1": ea, "img2": eb}, EB, [EB, EH, EW],
+                                      dev, smi, census=(elbo_blocks_module,
+                                                        "census_loss_no_penalty"))
+    return launches
+
+
+def switch_trainer(cfg, model, batches, **train):
+    """A UFlowTrainer of ``cfg`` over ``batches`` with ``train`` set in its
+    train section, initialised."""
+    train_cfg = cfg.train.copy()
+    train_cfg.update({"epoch_num": 1, "epoch_size": len(batches), "seed": SEED,
+                      **train})
+    trainer = UFlowTrainer(batches, None, model, get_loss(cfg.loss),
+                           logging.getLogger("chip_smoke"),
+                           os.path.join(REPO, "outputs", "chip_smoke"),
+                           train_cfg, model_cfg=cfg.model, full_cfg=cfg)
+    trainer._ensure_init()
+    return trainer
+
+
+def phase_train_switches(cfg, dev, smi):
+    """The trainer switches on the card, the uflow step at 256x448 b8:
+    ``nan_revert`` (a NaN batch leaves the weights, the Adam state and the
+    schedule's count bit for bit, counts in ``nan_skips``, and the next
+    step proceeds; the step's ms with the switch on and off), ``remat``
+    (level dropout SWITCH_DROPOUT: the step's gradients, the parameters
+    after it and the generator against the plain step, the peak memory and
+    ms of each) and ``stage1``
+    (fires once). Returns the kernel's launches of the remat step."""
+    loss_cfg = cfg.loss.copy()
+    loss_cfg.smooth_order = 1
+    scfg = Config({**cfg, "loss": loss_cfg})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    batches = []
+    for dy, dx in ((1, 2), (2, -3), (-3, 1)):
+        a, b = shifted_pair(TB, TH, TW, dy, dx, gen, dev)
+        batches.append({"img1": a, "img2": b, "img1_ph": a, "img2_ph": b})
+    poisoned = dict(batches[1], img1_ph=batches[1]["img1_ph"].clone())
+    poisoned["img1_ph"][0, 10, 10] = float("nan")
+
+    model = get_model(scfg.model, device=dev, seed=SEED)
+    trainer = switch_trainer(scfg, model, batches, nan_revert=True)
+    args = [trainer._batch_inputs(x) for x in (batches[0], poisoned, batches[2])]
+    trainer.train_step(*args[0])
+    before = trainer_state(trainer)
+    metrics = trainer.train_step(*args[1])
+    after = trainer_state(trainer)
+    reverted = all(same_state(before[k], after[k])
+                   for k in ("state_dict", "optimizer", "opt_count"))
+    skips = trainer.nan_skips
+    trainer.train_step(*args[2])
+    moved = not same_state(after["state_dict"], trainer_state(trainer)["state_dict"])
+    plain = switch_trainer(scfg, model, batches)
+    ms_off, ms_on, turns = timed_pair(lambda: plain.train_step(*args[0]),
+                                      lambda: trainer.train_step(*args[0]), iters=5)
+    emit({"phase": "nan_revert", "shape": [TB, TH, TW],
+          "nan_loss": float(metrics[0]), "reverted_bit_for_bit": reverted,
+          "nan_skips": skips, "next_step_moved": moved,
+          "ms_per_step_off": ms_off, "ms_per_step_on": ms_on,
+          "ms_turns_off_on_on_off": turns, "card": smi})
+    if not (reverted and skips == 1 and moved and trainer.nan_skips == 1):
+        raise AssertionError(f"nan_revert: reverted {reverted}, nan_skips "
+                             f"{trainer.nan_skips}, next step moved {moved}")
+    del trainer, plain, model
+
+    # remat: two trainers from the same weights and seed, one step each.
+    base = get_model(scfg.model, device=dev, seed=SEED)
+    base.level_dropout = SWITCH_DROPOUT
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    for remat in (False, True):
+        t = switch_trainer(scfg, copy.deepcopy(base), batches, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t.train_step(*args[0])
+        torch.cuda.synchronize()
+        runs[remat] = {"trainer": t,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": {k.name: k.launches for k in KERNELS},
+                       "grads": {n: p.grad.clone() for n, p in t.model.named_parameters()
+                                 if p.grad is not None},
+                       "generator": t.generator.get_state()}
+    torch.backends.cudnn.deterministic = False
+    g0, g1 = runs[False]["grads"], runs[True]["grads"]
+    grad_rel = rel_l2(flat(g1), flat(g0).double()) if sorted(g0) == sorted(g1) else None
+    same_gen = torch.equal(runs[False]["generator"], runs[True]["generator"])
+    lr = runs[False]["trainer"].optimizer.schedule(0)
+    step_gap = max(float((p - q).detach().abs().max()) for p, q in zip(
+        runs[False]["trainer"].model.parameters(),
+        runs[True]["trainer"].model.parameters()))
+    ms_off, ms_on, turns = timed_pair(
+        lambda: runs[False]["trainer"].train_step(*args[0]),
+        lambda: runs[True]["trainer"].train_step(*args[0]), iters=5)
+    emit({"phase": "remat", "shape": [TB, TH, TW], "level_dropout": SWITCH_DROPOUT,
+          "grad_rel_l2_vs_plain": grad_rel, "grad_rtol": REMAT_GRAD_RTOL,
+          "same_generator_state": same_gen,
+          "param_max_abs_gap_after_step": step_gap, "lr": lr,
+          "param_bound": REMAT_PARAM_LRS * lr,
+          "peak_memory_gb_plain": runs[False]["peak_gb"],
+          "peak_memory_gb_remat": runs[True]["peak_gb"],
+          "launches_plain": runs[False]["launches"],
+          "launches_remat": runs[True]["launches"],
+          "ms_per_step_plain": ms_off, "ms_per_step_remat": ms_on,
+          "ms_turns_plain_remat_remat_plain": turns, "card": smi})
+    if not (grad_rel is not None and grad_rel <= REMAT_GRAD_RTOL and same_gen
+            and step_gap <= REMAT_PARAM_LRS * lr):
+        raise AssertionError(f"remat: gradients {grad_rel}, generator {same_gen}, "
+                             f"parameters {step_gap}")
+    launches = runs[True]["launches"]
+    if launches != {"cost_volume": 16, "cost_volume_bwd": 8}:
+        raise AssertionError(f"remat step launched {launches}, not 16 + 8")
+    del runs, base
+
+    stage1 = Config({**scfg, "stage1": {"epoch": 1, "loss": {"w_smooth": 0.0}}})
+    t = switch_trainer(stage1, get_model(scfg.model, device=dev, seed=SEED),
+                       batches[:1], epoch_num=3)
+    seen = []
+    for _ in range(3):
+        t._run_one_epoch()
+        seen.append(t.loss_func.cfg.w_smooth)
+        t.loss_func.cfg.w_smooth = 4.0
+    emit({"phase": "stage1", "w_smooth_after_epochs_0_1_2": seen,
+          "fired": t._stage1_fired, "card": smi})
+    if seen != [4.0, 0.0, 4.0]:
+        raise AssertionError(f"stage1: w_smooth after each epoch {seen}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2941,6 +3480,8 @@ def main() -> int:
                     "cli": timed("mse_cli", phase_mse_cli, dev, smi)}
     export_launches, stream_cli_launches, tool_seconds = phase_serving_tools(dev, smi)
     seconds.update(tool_seconds)
+    bf16_launches = timed("bf16", phase_bf16, cfg, dev, smi)
+    remat_launches = timed("train_switches", phase_train_switches, cfg, dev, smi)
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [{
         "name": COST_VOLUME.name,
@@ -2994,6 +3535,15 @@ def main() -> int:
         # with --bw and --artifact (phase stream_cli).
         "launches_export": export_launches,
         "launches_stream_cli": stream_cli_launches,
+        # model.dtype bfloat16 (phase bf16), through compute_cost_volume's
+        # float32 round trip: one forward at 384x640 b8 and of setup (a) at
+        # 448x1024 b8, the 12-frame b1 stream, a b1 artifact's forward, one
+        # uflow step at 256x448 b8 and one ELBO (a) step at 256x448 b4.
+        "launches_bf16": {k: v if isinstance(v, int) else v["cost_volume"]
+                          for k, v in bf16_launches.items()},
+        # One uflow step at 256x448 b8 with train.remat: the forward's 8 and
+        # the 8 of the recomputed decoder levels (phase train_switches).
+        "launches_remat": remat_launches["cost_volume"],
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",
@@ -3017,6 +3567,9 @@ def main() -> int:
         "launches_mse": {k: v["cost_volume_bwd"] for k, v in mse_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in mse_grad_rows[key])
            for key in mse_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
+        "launches_bf16": {k: bf16_launches[k]["cost_volume_bwd"]
+                          for k in ("train_step", "elbo_step")},
+        "launches_remat": remat_launches["cost_volume_bwd"],
     }]})
     # The card's name and power limit as nvidia-smi prints them, on a line
     # of their own before the result line.

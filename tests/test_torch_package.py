@@ -3,6 +3,7 @@
 CUDA device and raise without one instead of running on the CPU, and what
 it does not port yet raises and names the roadmap item."""
 
+import contextlib
 import logging
 import os
 import subprocess
@@ -97,7 +98,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 @pytest.mark.parametrize("model_cfg", [
     {"type": "pwclite", "n_frames": 2},
     {"type": "pwclite_prob", "n_frames": 2},
-    {"type": "uflow", "dtype": "bfloat16"},
+    {"type": "uflow", "dtype": "int8"},
 ])
 def test_unported_configs_raise_and_name_the_roadmap(model_cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -132,7 +133,9 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     feature of the JAX trainer that the port does not have yet raises where
     it would take effect and names its ``ROADMAP.md`` item, instead of
     being skipped: resuming from the JAX package's msgpack checkpoint among
-    them. Its orbax checkpoints stay with it, and saving one raises."""
+    them. Its orbax checkpoints stay with it, and saving one raises. The
+    switches ported since (``remat``, ``nan_revert``, ``stage1``) train
+    and take effect (``test_torch_train_switches.py`` holds them)."""
     train = dict(TRAIN)
     full = {"model": CFG, "loss": LOSS}
     kwargs, valid = {}, None
@@ -162,7 +165,9 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
         trainer_name = "uflow_elbo"
         full["data"] = [{"type": "train",
                          "photometric_aug": {"hue": 0.5, "device": True}}]
-    with pytest.raises(error, match=match):
+    ported = case in ("remat", "nan_revert", "stage1")
+    with (contextlib.nullcontext() if ported
+          else pytest.raises(error, match=match)):
         if case == "loss_uflow_elbo":  # the opt-in Taylor warp
             get_loss(Config({"type": "uflow_elbo", "taylor_warp": True}))
         model = get_model(full.model, device="cpu")
@@ -171,3 +176,7 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
             logging.getLogger("test"), str(tmp_path), full.train,
             model_cfg=full.model, full_cfg=full, **kwargs)
         trainer.train()
+    if ported:
+        assert trainer.i_iter == 1 and trainer.nan_skips == 0
+        assert trainer.loss_func.cfg.w_smooth == (0.0 if case == "stage1"
+                                                  else 4.0)

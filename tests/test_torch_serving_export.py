@@ -130,3 +130,20 @@ def test_refusals(mono, stream, tmp_path, monkeypatch):
     header = json.loads(open(mono, "rb").read()[8:8 + int.from_bytes(
         open(mono, "rb").read()[4:8], "little")])
     assert header["model_type"] == "uflow" and "sections" not in header
+
+
+def test_component_is_not_streamed():
+    """``component`` has no streaming in either package (the JAX engine
+    fails on its missing pyramid attribute): the engine and the streaming
+    export refuse it with a message of its own, not the PWC-Lite one."""
+    from arflow_tpu_torch.serving import StreamingFlowEngine
+    from arflow_tpu_torch.serving.engine import COMPONENT_NOT_STREAMED
+
+    model = Config({"type": "component", "out_channels": [2, 2, 0]})
+    with pytest.raises(NotImplementedError) as err:
+        StreamingFlowEngine(model, {}, device="cpu")
+    assert str(err.value) == COMPONENT_NOT_STREAMED
+    assert "'component'" in str(err.value) and "PWC-Lite" not in str(err.value)
+    with pytest.raises(NotImplementedError, match="'component'"):
+        export.export_streaming(Config({"model": model}), {}, 1, (H, W),
+                                device="cpu")

@@ -1,10 +1,12 @@
 """The port's ``torch.export`` artifacts for ``uflow_prob`` with the
 ``mixture`` entropy (two pyramids, ``chairs_uflow_elbo_mixture.json``'s model without its weights net) at 64x96 b1 on the CPU: the streaming artifact, each loaded
-output equal to the eager port engine (bit for bit) and within the bounds
-of ``tests/test_torch_serving.py`` of the JAX package's ``export_streaming`` artifact exported
-for ``cpu`` from the same weights. The entropies are not held to JAX's here, whose Monte-Carlo draws
-differ (``test_torch_serving_export_mixture.py`` holds the monolithic one
-with JAX's draws injected)."""
+output equal to the eager port engine (bit for bit; the entropy with the
+artifact's hashed draws injected) and within the bounds of
+``tests/test_torch_serving.py`` of the JAX package's ``export_streaming``
+artifact exported for ``cpu`` from the same weights. The entropies are not
+held to JAX's here, whose Monte-Carlo draws differ
+(``test_torch_serving_export_mixture.py`` holds the monolithic one with
+JAX's draws injected)."""
 
 import pytest
 

@@ -16,6 +16,7 @@ from arflow_tpu_torch import Config
 from arflow_tpu_torch.models import get_model, state_dict_from_jax
 from arflow_tpu_torch.serving import StreamingFlowEngine, export
 from arflow_tpu_torch.training.entropy import extract_uv_entropy
+from arflow_tpu_torch.utils.gmm import mixture_hash_draws
 from torch_port_util import H, W, draw_jax_params
 
 # Each setup: the model and loss sections of a shipped config at the tests'
@@ -54,9 +55,19 @@ def frames(n, seed, b=1):
     return [rs.rand(b, H, W, 3).astype(np.float32) for _ in range(n)]
 
 
+def artifact_draws(cfg, batch=1):
+    """The Monte-Carlo draws of an artifact's ``mixture`` entropy: the
+    eager ``mixture_hash_draws`` of ``export.DRAW_SEED`` (None for the
+    other approximations, which draw nothing)."""
+    if cfg.loss.get("approx") != "mixture":
+        return None
+    return mixture_hash_draws(cfg.loss.n_components, batch, (H, W),
+                              seed=export.DRAW_SEED)
+
+
 def eager(cfg, sd, img1, img2):
-    """The eager port model's (flow, entropy), as ``inference_main``
-    computes them (the mixture's draws from a generator seeded 0)."""
+    """The eager port model's (flow, entropy), the entropy with the
+    artifact's draws injected (``artifact_draws``)."""
     model = get_model(cfg.model, device="cpu")
     model.load_state_dict(sd, strict=True)
     a, b = torch.from_numpy(img1), torch.from_numpy(img2)
@@ -64,7 +75,7 @@ def eager(cfg, sd, img1, img2):
         res = model(a, b, with_bk=False)
         flow = res["flows_fw"][0][..., :2]
         ent = (extract_uv_entropy(res["flows_fw"], cfg.loss, res,
-                                  generator=torch.Generator().manual_seed(0))
+                                  draws=artifact_draws(cfg, a.shape[0]))
                if "approx" in cfg.loss else torch.zeros_like(flow))
     return flow, ent, res
 
@@ -148,11 +159,20 @@ def check_monolithic(cfg, sd, mono, jax_mono, jax_ent=None):
                                atol=JAX_ATOL)
 
 
+def engine_entropy(eng, fp_prev, cfg):
+    """The entropy of the engine's pair (``fp_prev``, its cached pyramids)
+    with the artifact's draws injected (``artifact_draws``)."""
+    with torch.no_grad():
+        flows = eng._flows(fp_prev, eng._prev)
+        return extract_uv_entropy(flows, cfg.loss, {"flows_fw": flows},
+                                  draws=artifact_draws(cfg))
+
+
 def check_streaming(cfg, sd, stream, jax_stream, jax_entropy=True):
     """The loaded streaming artifact, ``with_bw``, over 4 frames twice (a
-    reset between) against the eager engine (bit for bit) and the JAX
-    streaming artifact (``JAX_ATOL``; the entropy too with
-    ``jax_entropy``)."""
+    reset between) against the eager engine (bit for bit; its entropy with
+    the artifact's draws injected) and the JAX streaming artifact
+    (``JAX_ATOL``; the entropy too with ``jax_entropy``)."""
     art = export.load_streaming_artifact(stream)
     art.with_bw = True
     jart = jax_export.load_streaming_artifact(jax_stream)
@@ -164,9 +184,12 @@ def check_streaming(cfg, sd, stream, jax_stream, jax_entropy=True):
         assert art.push(seq[0]) is None and eng.push(seq[0]) is None
         assert jart.push(seq[0]) is None
         for cur in seq[1:]:
+            fp_prev = eng._prev
             out, want, jout = art.push(cur), eng.push(cur), jart.push(cur)
             assert sorted(out) == sorted(want) == sorted(jout)
             assert ("entropy" in out) == ("approx" in cfg.loss)
+            if cfg.loss.get("approx") == "mixture":
+                want["entropy"] = engine_entropy(eng, fp_prev, cfg)
             for key in want:
                 assert tuple(out[key].shape) == (1, H, W, 2)
                 torch.testing.assert_close(out[key], want[key], rtol=0, atol=0)
