@@ -17,7 +17,12 @@ Every command that runs a model or a loss does so on the CUDA device unless
 ``--device`` (``device=``) says otherwise, and raises without a card instead
 of dropping to the CPU; the evaluation and the conversion are host code. A
 checkpoint given with ``-m`` is a ``.pth(.tar)`` or the JAX package's
-``.msgpack``.
+``.msgpack``. Inference, export, streaming and conversion serve every model
+type of ``models/__init__.py``, the PWC-Lite family included (a ``model``
+section with ``"type": "pwclite"`` and its ``n_frames``, ``"pwclite_prob"``
+or ``"pwclite_uflow"``; ``-m`` a reference ``.pth.tar``); the 3-frame
+``pwclite`` streams its window with ``arflow-torch-stream`` and exports it
+with ``--streaming``.
 """
 
 from __future__ import annotations

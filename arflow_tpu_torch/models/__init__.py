@@ -1,15 +1,19 @@
 """Model factory of the port: ``type: "uflow"`` (``PWCFlow``),
 ``"uflow_prob"`` (``PWCProbFlow``) and ``"component"`` (``ComponentNet``),
-either with ``mixture_weights``, with ``dtype`` float32 or bfloat16. The
-other families and ``int8`` raise and name the roadmap item that brings
-them."""
+either with ``mixture_weights``; ``"pwclite"`` (``PWCLite``, 2, 3 or 5
+frames), ``"pwclite_prob"`` (``PWCLiteProb``) and ``"pwclite_uflow"``
+(``PWCLiteUflow``); each with ``dtype`` float32 or bfloat16. ``int8``
+raises."""
 
 from __future__ import annotations
 
 import torch
 
 from arflow_tpu_torch.device import resolve_device
-from arflow_tpu_torch.models.layers import init_xavier_uniform
+from arflow_tpu_torch.models.layers import init_kaiming_normal, init_xavier_uniform
+from arflow_tpu_torch.models.pwclite import PWCLite  # noqa: F401
+from arflow_tpu_torch.models.pwclite_prob import PWCLiteProb  # noqa: F401
+from arflow_tpu_torch.models.pwclite_uflow import PWCLiteUflow  # noqa: F401
 from arflow_tpu_torch.models.uflow import PWCFeaturePyramid, PWCFlow  # noqa: F401
 from arflow_tpu_torch.models.uflow_prob import (  # noqa: F401
     ComponentNet,
@@ -20,17 +24,15 @@ from arflow_tpu_torch.models.uflow_prob import (  # noqa: F401
 from arflow_tpu_torch.models.weights import (  # noqa: F401
     component_state_dict_from_jax,
     load_pretrained,
+    pwclite_state_dict_from_jax,
+    pwclite_uflow_state_dict_from_jax,
     save_torch_checkpoint,
     state_dict_from_jax,
     uflow_prob_state_dict_from_jax,
     uflow_state_dict_from_jax,
 )
 
-_NOT_PORTED = {
-    "pwclite": "the PWC-Lite family",
-    "pwclite_prob": "the PWC-Lite family",
-    "pwclite_uflow": "the PWC-Lite family",
-}
+PWCLITE_TYPES = ("pwclite", "pwclite_prob", "pwclite_uflow")
 
 
 def parse_dtype(name):
@@ -63,16 +65,31 @@ def get_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
     """``cfg`` (the config's ``model`` section) -> the model on ``device``,
     its weights drawn from ``torch.Generator().manual_seed(seed)``
     (xavier-uniform, zero bias; BatchNorm at scale 1, shift 0 and unit
-    running statistics), in eval mode, its parameters float32 whatever
+    running statistics; the PWC-Lite family's convs kaiming-normal, as the
+    JAX layers draw them), in eval mode, its parameters float32 whatever
     ``cfg.dtype`` computes in. Load trained weights with ``load_state_dict``
     or ``load_pretrained``."""
-    if cfg.type not in ("uflow", "uflow_prob", "component"):
-        item = _NOT_PORTED.get(cfg.type, "model families")
-        raise NotImplementedError(
-            f"model type {cfg.type!r} is not ported yet: ROADMAP.md queue 1, "
-            f"'{item}'")
+    if cfg.type not in ("uflow", "uflow_prob", "component") + PWCLITE_TYPES:
+        raise NotImplementedError(f"model type {cfg.type!r}")
     dtype = parse_dtype(cfg.get("dtype"))
     dev = resolve_device(device)
+    if cfg.type in PWCLITE_TYPES:
+        if cfg.type == "pwclite_uflow":
+            model = PWCLiteUflow(
+                n_frames=cfg.n_frames,
+                reduce_dense=cfg.get("reduce_dense", True),
+                level_dropout=cfg.get("level_dropout", 0.0),
+                feature_norm=cfg.get("feature_norm", False),
+                align_corners=cfg.get("align_corners", True),
+                warp_pad=cfg.get("warp_pad", "zeros"), dtype=dtype)
+        else:
+            cls = PWCLite if cfg.type == "pwclite" else PWCLiteProb
+            model = cls(n_frames=cfg.n_frames,
+                        upsample=cfg.get("upsample", True),
+                        reduce_dense=cfg.get("reduce_dense", True),
+                        dtype=dtype)
+        init_kaiming_normal(model, torch.Generator().manual_seed(seed))
+        return model.to(dev).eval()
     common = dict(feature_norm=cfg.get("feature_norm", True),
                   level_dropout=cfg.get("level_dropout", 0.0), dtype=dtype)
     if cfg.type == "uflow":

@@ -129,6 +129,38 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = LEAKY_ALPHA
     return F.leaky_relu(x, negative_slope)
 
 
+def conv_block(in_channels: int, out_channels: int, kernel_size: int = 3,
+               stride: int = 1, dilation: int = 1, relu: bool = True,
+               dtype: torch.dtype | None = None) -> nn.Sequential:
+    """The PWC-Lite family's ``conv``: ``Sequential(Conv2d, LeakyReLU)``, or
+    the conv alone without ``relu``, so that its weight sits under
+    ``.0``, as in the reference's checkpoints."""
+    layers = [conv2d(in_channels, out_channels, kernel_size, stride, dilation,
+                     dtype=dtype)]
+    if relu:
+        layers.append(nn.LeakyReLU(LEAKY_ALPHA))
+    return nn.Sequential(*layers)
+
+
+@torch.no_grad()
+def init_kaiming_normal(module: nn.Module, generator: torch.Generator) -> None:
+    """The PWC-Lite family's init, as the JAX layers draw it: every conv's
+    weight normal with variance 2 / fan_in
+    (``arflow_tpu/models/layers.py:kaiming_normal``), every transposed
+    conv's xavier-uniform (``ConvTranspose2dTorch``'s default), zero
+    biases; in module order, from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, nn.ConvTranspose2d):
+            nn.init.xavier_uniform_(m.weight, generator=generator)
+        elif isinstance(m, nn.Conv2d):
+            nn.init.kaiming_normal_(m.weight, mode="fan_in",
+                                    nonlinearity="relu", generator=generator)
+        else:
+            continue
+        if m.bias is not None:
+            m.bias.zero_()
+
+
 @torch.no_grad()
 def init_xavier_uniform(module: nn.Module, generator: torch.Generator) -> None:
     """Xavier-uniform weights and zero biases for every (transposed) conv

@@ -94,6 +94,8 @@ def _conv_stack(convs, x: torch.Tensor) -> torch.Tensor:
 class PWCFlow(nn.Module):
     """UFlow PWC optical-flow network."""
 
+    pyramid_module = "_feature_pyramid_extractor"
+
     def __init__(self, feature_norm: bool = True, level_dropout: float = 0.0,
                  dtype: torch.dtype | None = None):
         super().__init__()

@@ -89,6 +89,8 @@ def _pad_channels(x: torch.Tensor, channels: int) -> torch.Tensor:
 class PWCProbFlow(nn.Module):
     """UFlow PWC network with grouped probabilistic outputs."""
 
+    pyramid_module = "_feature_pyramid_extractor"
+
     def __init__(self, out_channels=(2, 2, 0), inv_cov: bool = False,
                  n_pyramids: int = 1, feature_norm: bool = True,
                  level_dropout: float = 0.0, mixture_weights: bool = False,

@@ -1,10 +1,12 @@
 """Weights into the port: JAX parameter trees and reference checkpoints.
 
-``uflow_state_dict_from_jax``, ``uflow_prob_state_dict_from_jax`` and
-``component_state_dict_from_jax`` are the port's own copies of
-``arflow_tpu/models/torch_export.py:export_uflow``, ``export_uflow_prob``
-and ``export_component_net``: they turn a JAX variable tree (a nested dict
-of arrays, handed over as numpy) into this package's ``state_dict``:
+``uflow_state_dict_from_jax``, ``uflow_prob_state_dict_from_jax``,
+``component_state_dict_from_jax``, ``pwclite_state_dict_from_jax`` and
+``pwclite_uflow_state_dict_from_jax`` are the port's own copies of
+``arflow_tpu/models/torch_export.py:export_uflow``, ``export_uflow_prob``,
+``export_component_net``, ``export_pwclite`` and ``export_pwclite_uflow``:
+they turn a JAX variable tree (a nested dict of arrays, handed over as
+numpy) into this package's ``state_dict``:
 
 - conv kernels HWIO -> OIHW, dense kernels transposed;
 - deconv kernels, stored pre-flipped in the JAX package: un-flip, then
@@ -194,21 +196,82 @@ def component_state_dict_from_jax(variables) -> dict:
     return _tensors(sd)
 
 
+# The PWC-Lite family: the reference's conv() is Sequential(Conv2d,
+# LeakyReLU), so its weights sit under '.0'.
+
+def _lite_pyramid_from_jax(sd, pyr):
+    pairs = sorted(tuple(int(v) for v in k[len("conv_l"):].split("_"))
+                   for k in pyr if k.startswith("conv_l"))
+    for lvl, j in pairs:
+        _put(sd, f"feature_pyramid_extractor.convs.{lvl}.{j}.0",
+             pyr[f"conv_l{lvl}_{j}"], conv_kernel_from_jax)
+
+
+def _lite_estimator_from_jax(sd, est, prefix):
+    for i in range(1, 6):
+        _put(sd, f"{prefix}.conv{i}.0", est[f"conv{i}"], conv_kernel_from_jax)
+    last = "predict_flow" if "predict_flow" in est else "conv_last"
+    _put(sd, f"{prefix}.{last}.0", est[last], conv_kernel_from_jax)
+
+
+def _lite_context_from_jax(sd, ctx):
+    n = len(_indices(ctx, "ctx_"))
+    for i in range(n):
+        _put(sd, f"context_networks.convs.{i}.0", ctx[f"ctx_{i}"],
+             conv_kernel_from_jax)
+    _put(sd, f"context_networks.convs.{n}.0", ctx["ctx_out"],
+         conv_kernel_from_jax)
+
+
+def pwclite_state_dict_from_jax(params) -> dict:
+    """JAX ``PWCLite`` or ``PWCLiteProb`` params (the same layout) -> this
+    package's state_dict: ``feature_pyramid_extractor.convs.{l}.{j}.0``,
+    ``flow_estimators.conv{i}.0``, ``context_networks.convs.{i}.0`` and
+    ``conv_1x1.{l}.0``."""
+    params = _params(params)
+    sd = {}
+    _lite_pyramid_from_jax(sd, params["feature_pyramid"])
+    _lite_estimator_from_jax(sd, params["flow_estimator"], "flow_estimators")
+    _lite_context_from_jax(sd, params["context_network"])
+    for level in _indices(params, "conv_1x1_"):
+        _put(sd, f"conv_1x1.{level}.0", params[f"conv_1x1_{level}"],
+             conv_kernel_from_jax)
+    return _tensors(sd)
+
+
+def pwclite_uflow_state_dict_from_jax(params) -> dict:
+    """JAX ``PWCLiteUflow`` params -> this package's state_dict: the
+    pyramid as ``PWCLite``'s, ``flow_estimators.{l}.conv{i}.0``,
+    ``deconv_networks.{l}`` and ``context_networks.convs.{i}.0``."""
+    params = _params(params)
+    sd = {}
+    _lite_pyramid_from_jax(sd, params["feature_pyramid"])
+    for level in _indices(params, "flow_estimator_"):
+        _lite_estimator_from_jax(sd, params[f"flow_estimator_{level}"],
+                                 f"flow_estimators.{level}")
+    for level in _indices(params, "deconv_"):
+        _put(sd, f"deconv_networks.{level}", params[f"deconv_{level}"],
+             deconv_kernel_from_jax)
+    _lite_context_from_jax(sd, params["context_network"])
+    return _tensors(sd)
+
+
 _CONVERTERS = {
     "uflow": uflow_state_dict_from_jax,
     "uflow_prob": uflow_prob_state_dict_from_jax,
     "component": component_state_dict_from_jax,
+    "pwclite": pwclite_state_dict_from_jax,
+    "pwclite_prob": pwclite_state_dict_from_jax,
+    "pwclite_uflow": pwclite_uflow_state_dict_from_jax,
 }
 
 
 def state_dict_from_jax(variables, model_cfg) -> dict:
     """JAX variables (bare params, ``{'params'}`` or with ``'batch_stats'``)
     of the model ``model_cfg`` names -> this package's state_dict, by model
-    type. The PWC-Lite types raise as the model factory does."""
-    from arflow_tpu_torch.models import get_model
-
+    type."""
     if model_cfg.type not in _CONVERTERS:
-        get_model(model_cfg, device="cpu")  # raises, naming the roadmap item
+        raise NotImplementedError(f"model type {model_cfg.type!r}")
     return _CONVERTERS[model_cfg.type](variables)
 
 

@@ -1,4 +1,4 @@
-"""Tensor ops of the UFlow path (NCHW)."""
+"""Tensor ops of the UFlow and PWC-Lite paths (NCHW)."""
 
 from arflow_tpu_torch.ops.census import (  # noqa: F401
     abs_robust_loss,
@@ -24,6 +24,7 @@ from arflow_tpu_torch.ops.resize import (  # noqa: F401
 )
 from arflow_tpu_torch.ops.warp import (  # noqa: F401
     flow_to_warp,
+    flow_warp,
     mask_invalid,
     resample,
 )

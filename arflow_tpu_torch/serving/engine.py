@@ -1,6 +1,6 @@
 """Streaming (video) optical-flow serving (port of
-``arflow_tpu/serving/engine.py``, the 2-frame ``uflow`` and ``uflow_prob``
-families).
+``arflow_tpu/serving/engine.py``: ``uflow``, ``uflow_prob``, ``pwclite``
+with 2 or 3 frames, ``pwclite_prob`` and ``pwclite_uflow``).
 
 A stream of T frames needs T feature pyramids (K per frame for a
 ``uflow_prob`` model with ``n_pyramids`` K), not the 2(T-1) of running the
@@ -9,6 +9,11 @@ the coarse-to-fine decoder runs on (pyramids of t-1, pyramids of t), the K
 components in one batched pass. The pyramids and the decoder are the same
 modules the monolithic forward runs. With a ``loss_cfg`` that has
 ``approx``, each push also returns the entropy map of that approximation.
+
+The 3-frame ``pwclite`` runs a window of three cached pyramids centred on
+the previous frame: each push from the third frame on returns the flow
+(t-1) -> t and, with ``with_bw``, (t-1) -> (t-2), both from one fused
+decoder pass over (t-2, t-1, t), as the JAX engine does.
 
 PyTorch's CUDA calls are asynchronous: ``push`` enqueues the device work
 and returns tensors on the device; reading them waits for the card.
@@ -30,10 +35,13 @@ import torch
 
 from arflow_tpu_torch.device import resolve_device
 
-_NOT_PORTED = (
-    "streaming for model type {!r} is not ported yet: ROADMAP.md queue 1, "
-    "'serving' (the 3-frame PWC-Lite window)"
-)
+STREAMED = ("uflow", "uflow_prob", "pwclite", "pwclite_prob", "pwclite_uflow")
+# The 5-frame PWCLite chains 3-frame windows inside one model call; the JAX
+# engine refuses it with this error.
+FIVE_FRAMES_NOT_STREAMED = (
+    "StreamingFlowEngine supports the 2-frame and 3-frame PWCLite; the "
+    "5-frame variant chains multiple 3-frame windows inside one model call "
+    "(use the monolithic forward).")
 # The JAX engine has no streaming for ComponentNet either: two nets, each
 # with its own pyramid, and no pyramid attribute to split at.
 COMPONENT_NOT_STREAMED = (
@@ -45,12 +53,13 @@ COMPONENT_NOT_STREAMED = (
 class StreamingFlowEngine:
     """Per-frame pyramid reuse for consecutive-pair flow on a video stream.
 
-    model_cfg : the config's ``model`` section (``type`` "uflow" or
-        "uflow_prob").
+    model_cfg : the config's ``model`` section (``type`` one of
+        ``STREAMED``; a ``pwclite`` with ``n_frames`` 2 or 3).
     state_dict : the model's weights (e.g. from ``uflow_state_dict_from_jax``
         or a reference checkpoint), loaded with ``strict=True``.
-    with_bw : also return the backward flow (cur -> prev): one more decoder
-        pass, no more pyramids.
+    with_bw : also return the backward flow (cur -> prev; for the 3-frame
+        window (t-1) -> (t-2)): one more decoder pass (none for the 3-frame
+        window, whose pass computes it anyway), no more pyramids.
     device : ``"cuda"`` unless asked otherwise; raises without a card.
     loss_cfg : the config's ``loss`` section; with ``approx``, each push
         also returns ``'entropy'`` (``extract_uv_entropy``, the ``mixture``
@@ -63,8 +72,11 @@ class StreamingFlowEngine:
 
         if model_cfg.type == "component":
             raise NotImplementedError(COMPONENT_NOT_STREAMED)
-        if model_cfg.type not in ("uflow", "uflow_prob"):
-            raise NotImplementedError(_NOT_PORTED.format(model_cfg.type))
+        if model_cfg.type not in STREAMED:
+            raise NotImplementedError(
+                f"streaming for model type {model_cfg.type!r}")
+        if model_cfg.type == "pwclite" and model_cfg.n_frames not in (2, 3):
+            raise ValueError(FIVE_FRAMES_NOT_STREAMED)
         if model_cfg.get("mixture_weights"):
             raise ValueError(
                 "mixture_weights inference is bidirectional over raw images "
@@ -75,12 +87,14 @@ class StreamingFlowEngine:
         self._model.to(self.device)
         self._loss_cfg = loss_cfg if loss_cfg and "approx" in loss_cfg else None
         self._with_bw = with_bw
-        self._prev = None
+        # Frames per output: 3 for the 3-frame PWCLite, else 2.
+        self.window = 3 if getattr(self._model, "n_frames", 2) == 3 else 2
+        self._prev = []  # pyramids of the last window - 1 frames, oldest first
         self.pyramids_computed = 0  # frames whose pyramids were computed
 
     def reset(self):
         """Drop the cached pyramids (call at a video or scene boundary)."""
-        self._prev = None
+        self._prev = []
 
     def _flows(self, fps1, fps2) -> list:
         """The pair's outputs, NHWC views, finest first."""
@@ -90,10 +104,15 @@ class StreamingFlowEngine:
     def push(self, frame) -> dict | None:
         """Feed the next frame, (B,H,W,3) or (H,W,3) float32 in [0, 1].
 
-        Returns None for the first frame after construction or ``reset``;
+        Returns None until the window is full (the first frame after
+        construction or ``reset``; the first two for the 3-frame window);
         then ``{'flow'}`` (B,H,W,2), the flow prev -> cur, with ``with_bw``
         also ``'flow_bw'`` (cur -> prev), and with an ``approx`` in
-        ``loss_cfg`` also ``'entropy'`` (B,H,W,2) of the forward flow.
+        ``loss_cfg`` also ``'entropy'`` (B,H,W,2) of the forward flow. The
+        3-frame window is centred on the previous frame: ``'flow'`` is
+        (t-1) -> t and ``'flow_bw'`` (t-1) -> (t-2), so the outputs trail
+        the stream by one frame; it returns no ``'entropy'`` (the PWCLite
+        has no variance output).
         """
         frame = torch.as_tensor(frame, dtype=torch.float32, device=self.device)
         if frame.dim() == 3:
@@ -101,10 +120,13 @@ class StreamingFlowEngine:
         fp = self._model.feature_pyramids(
             frame.permute(0, 3, 1, 2).contiguous())
         self.pyramids_computed += 1
-        prev, self._prev = self._prev, fp
+        prev = slide_window(self, fp)
         if prev is None:
             return None
-        flows = self._flows(prev, fp)
+        if self.window == 3:
+            return window_outputs(decode_window(self._model, *prev, fp),
+                                  self._with_bw)
+        flows = self._flows(prev[0], fp)
         out = {"flow": flows[0][..., :2].contiguous()}
         if self._loss_cfg is not None:
             from arflow_tpu_torch.training.entropy import extract_uv_entropy
@@ -113,8 +135,33 @@ class StreamingFlowEngine:
                 flows, self._loss_cfg, {"flows_fw": flows},
                 generator=torch.Generator(device=self.device).manual_seed(0))
         if self._with_bw:
-            out["flow_bw"] = self._flows(fp, prev)[0][..., :2].contiguous()
+            out["flow_bw"] = self._flows(fp, prev[0])[0][..., :2].contiguous()
         return out
+
+
+def slide_window(stream, fp) -> list | None:
+    """Append the newest frame's pyramids ``fp`` to ``stream._prev``, which
+    keeps the last ``stream.window - 1``; the earlier frames of the window
+    that ``fp`` completes, oldest first, or None while it is not full. The
+    window policy of ``StreamingFlowEngine`` and ``StreamingArtifact``."""
+    prev = stream._prev
+    stream._prev = (prev + [fp])[-(stream.window - 1):]
+    return prev if len(prev) == stream.window - 1 else None
+
+
+def decode_window(model, fp0, fp1, fp2):
+    """The 3-frame window centred on frame 1, finest level, (B,H,W,2):
+    ``(flow 1 -> 2, flow 1 -> 0)``, one fused decoder pass; the pair that
+    the streaming artifact's ``decode`` exports."""
+    flows_10, flows_12 = model.decode3(fp0, fp1, fp2)
+    return (flows_12[0].permute(0, 2, 3, 1).contiguous(),
+            flows_10[0].permute(0, 2, 3, 1).contiguous())
+
+
+def window_outputs(flows, with_bw: bool) -> dict:
+    """``push``'s result for a 3-frame window's ``(flow, flow_bw)``."""
+    flow, flow_bw = flows
+    return {"flow": flow, "flow_bw": flow_bw} if with_bw else {"flow": flow}
 
 
 def _decode_frame(path, size_hw):

@@ -18,7 +18,9 @@ Format 1 is monolithic: one ``torch.export.save`` payload of
 ``(img1, img2) -> (flow, entropy)``. Format 2 is streaming: a ``sections``
 table of ``[name, bytes]`` and the payloads ``pyramid(img) -> fp`` and
 ``decode(fp_prev, fp_cur) -> (flow, entropy)``, the split programs of
-``StreamingFlowEngine`` (one pyramid per frame). The header holds the JAX
+``StreamingFlowEngine`` (one pyramid per frame); for the 3-frame PWCLite
+(``window`` 3 in the header) ``decode(fp0, fp1, fp2) -> (flow_12,
+flow_10)``, the fused window centred on frame 1. The header holds the JAX
 keys, with ``device`` in place of ``platforms`` and ``torch_version`` in
 place of ``jax_version``.
 
@@ -51,7 +53,12 @@ import torch
 
 # Registers arflow::cost_volume, which a program's graph calls.
 import arflow_tpu_torch.ops.cuda.cost_volume  # noqa: F401
-from arflow_tpu_torch.serving.engine import _NOT_PORTED
+from arflow_tpu_torch.serving.engine import (
+    STREAMED,
+    decode_window,
+    slide_window,
+    window_outputs,
+)
 
 _MAGIC = b"AFX1"
 
@@ -94,9 +101,6 @@ class InferenceModule(torch.nn.Module):
         return flows[0][..., 0:2].contiguous(), self.entropy(flows, res)
 
 
-_PYRAMID = "_feature_pyramid_extractor"
-
-
 def _part(model, keep):
     """A shallow copy of ``model`` with only the submodules whose names
     ``keep`` accepts: an exported program keeps every parameter of its
@@ -111,7 +115,7 @@ class PyramidModule(torch.nn.Module):
 
     def __init__(self, model):
         super().__init__()
-        self.model = _part(model, lambda name: name == _PYRAMID)
+        self.model = _part(model, lambda name: name == model.pyramid_module)
 
     def forward(self, img):
         return self.model.feature_pyramids(
@@ -123,7 +127,7 @@ class DecodeModule(torch.nn.Module):
 
     def __init__(self, model, loss_cfg):
         super().__init__()
-        self.model = _part(model, lambda name: name != _PYRAMID)
+        self.model = _part(model, lambda name: name != model.pyramid_module)
         self.entropy = _Entropy(loss_cfg)
 
     def forward(self, fp_prev, fp_cur):
@@ -132,13 +136,30 @@ class DecodeModule(torch.nn.Module):
                 self.entropy(flows, {"flows_fw": flows}))
 
 
-def _check_model(model_cfg):
+class Decode3Module(torch.nn.Module):
+    """``decode(fp0, fp1, fp2)`` -> ``(flow_12, flow_10)`` of the 3-frame
+    window centred on frame 1."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = _part(model, lambda name: name != model.pyramid_module)
+
+    def forward(self, fp0, fp1, fp2):
+        return decode_window(self.model, fp0, fp1, fp2)
+
+
+def _check_model(model_cfg, streaming: bool = False):
     from arflow_tpu_torch.models.uflow_prob import MIXTURE_NEEDS_BK
 
-    if model_cfg.type not in ("uflow", "uflow_prob", "component"):
-        raise NotImplementedError(_NOT_PORTED.format(model_cfg.type))
+    if model_cfg.type not in STREAMED + ("component",):
+        raise NotImplementedError(f"export of model type {model_cfg.type!r}")
     if model_cfg.get("mixture_weights"):
         raise ValueError(f"export: {MIXTURE_NEEDS_BK}")
+    if model_cfg.type == "pwclite" and model_cfg.n_frames != 2 and not streaming:
+        raise ValueError(
+            f"export: the monolithic artifact takes an image pair; the "
+            f"{model_cfg.n_frames}-frame PWCLite exports its 3-frame window "
+            f"as a streaming artifact (--streaming)")
 
 
 def build_inference_fn(cfg, state_dict, device="cuda") -> InferenceModule:
@@ -186,22 +207,28 @@ def export_inference(cfg, state_dict, batch: int, size_hw, *, device="cuda"):
 def export_streaming(cfg, state_dict, batch: int, size_hw, *, device="cuda"):
     """Export ``StreamingFlowEngine``'s split programs at static
     ``(batch, H, W)`` frames on ``device``: ``pyramid(img) -> fp`` and
-    ``decode(fp_prev, fp_cur) -> (flow, entropy)``. Returns
+    ``decode(fp_prev, fp_cur) -> (flow, entropy)``, or for the 3-frame
+    PWCLite ``decode(fp0, fp1, fp2) -> (flow_12, flow_10)``. Returns
     ``({'pyramid', 'decode'}, meta)`` for ``save_streaming_artifact``."""
     from arflow_tpu_torch.serving.engine import StreamingFlowEngine
 
+    _check_model(cfg.model, streaming=True)
     engine = StreamingFlowEngine(cfg.model, state_dict, device=device,
                                  loss_cfg=cfg.get("loss"))
     dev, model = engine.device, engine._model.eval()
     h, w = int(size_hw[0]), int(size_hw[1])
     pyramid = PyramidModule(model)
     with torch.no_grad():
-        fps = [pyramid(_frame(batch, h, w, dev)) for _ in range(2)]
-    decode = DecodeModule(model, cfg.get("loss")).to(dev)
+        fps = [pyramid(_frame(batch, h, w, dev)) for _ in range(engine.window)]
+    if engine.window == 3:
+        decode, has_entropy = Decode3Module(model).to(dev), False
+    else:
+        decode = DecodeModule(model, cfg.get("loss")).to(dev)
+        has_entropy = decode.entropy.loss_cfg is not None
     exported = {"pyramid": _export(pyramid, (_frame(batch, h, w, dev),)),
                 "decode": _export(decode, tuple(fps))}
-    meta = _meta(cfg, decode.entropy.loss_cfg is not None, batch, h, w, dev)
-    meta["window"] = 2
+    meta = _meta(cfg, has_entropy, batch, h, w, dev)
+    meta["window"] = engine.window
     return exported, meta
 
 
@@ -293,33 +320,41 @@ def load_artifact(path: str) -> ServingArtifact:
 class StreamingArtifact:
     """A loaded streaming artifact: a source-free ``StreamingFlowEngine``.
 
-    ``push(frame)`` returns None until the window holds the previous frame,
-    then ``{'flow'}`` (prev -> cur), with ``with_bw`` also ``'flow_bw'``
-    (the decoder run again on the swapped pyramids) and, when exported from
-    a config with ``approx``, ``'entropy'``. Frames carry the exported
-    batch and size.
+    ``push(frame)`` returns None until the window is full, then
+    ``{'flow'}`` (prev -> cur), with ``with_bw`` also ``'flow_bw'`` (the
+    decoder run again on the swapped pyramids) and, when exported from a
+    config with ``approx``, ``'entropy'``. A 3-frame artifact (``window`` 3)
+    waits for two frames and then returns, as the engine does, ``'flow'``
+    (t-1) -> t and with ``with_bw`` ``'flow_bw'`` (t-1) -> (t-2), both from
+    one run of its decoder. Frames carry the exported batch and size.
     """
 
     meta: dict
     pyramid: torch.nn.Module
     decode: torch.nn.Module
     with_bw: bool = False
-    _prev: list = field(default=None, repr=False)
+    _prev: list = field(default_factory=list, repr=False)
+
+    @property
+    def window(self) -> int:
+        return int(self.meta.get("window", 2))
 
     def reset(self):
-        self._prev = None
+        self._prev = []
 
     def push(self, frame):
         x = _as_input(frame, self.meta, "frames")
         with torch.no_grad():
             fp = self.pyramid(x)
-            prev, self._prev = self._prev, fp
+            prev = slide_window(self, fp)
             if prev is None:
                 return None
-            flow, ent = self.decode(prev, fp)
+            if self.window == 3:
+                return window_outputs(self.decode(*prev, fp), self.with_bw)
+            flow, ent = self.decode(prev[0], fp)
             out = {"flow": flow}
             if self.with_bw:
-                out["flow_bw"] = self.decode(fp, prev)[0]
+                out["flow_bw"] = self.decode(fp, prev[0])[0]
         if self.meta.get("has_entropy"):
             out["entropy"] = ent
         return out

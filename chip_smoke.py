@@ -38,7 +38,16 @@ casts, setup (a) at 448x1024 b8 with its entropy, the b1 stream, an
 artifact, and the uflow and ELBO (a) train steps beside float32) and the
 trainer switches (phase train_switches: ``nan_revert`` on a NaN batch,
 ``remat`` against the plain step with level dropout on, with the peak
-memory of each, and ``stage1``). It checks the outputs, and
+memory of each, and ``stage1``); and the PWC-Lite family (phase
+pwclite_kernels: the forward kernel at every level shape of the PWCLite at
+384x640 b8 and b1 and 448x1024 b1 and of the PWCLiteUflow at 384x640 b8;
+pwclite_inference: ``pwclite``, ``pwclite_prob`` and ``pwclite_uflow`` at
+384x640 b8 against the plain cost volume, timed and profiled, b1 forwards
+with ``align_corners: false`` and ``warp_pad: border``, a bf16 forward;
+pwclite_serving: the 3-frame window of ``StreamingFlowEngine`` over 12 b1
+frames against the monolithic 3-frame forward, flows/s, and a 5-frame
+forward against its windows; and in phase export the b8 ``pwclite``
+artifact and the 3-frame streaming artifact). It checks the outputs, and
 times the kernels, the forwards, the streams, the train steps and the
 entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
@@ -90,6 +99,7 @@ from arflow_tpu_torch.losses import blocks as elbo_blocks_module
 from arflow_tpu_torch.losses import mse as mse_loss_module
 from arflow_tpu_torch.losses import uflow as uflow_loss_module
 from arflow_tpu_torch.models import get_model, load_pretrained
+from arflow_tpu_torch.models import pwclite as pwclite_module
 from arflow_tpu_torch.models import uflow as uflow_module
 from arflow_tpu_torch.models import uflow_prob as uflow_prob_module
 from arflow_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
@@ -425,7 +435,7 @@ def time_forward(levels, gen, dev, smi) -> dict:
     shapes: graph-timed and eager kernel, plain version, bound."""
     per_level = {key: [] for key in levels}
     for key, shapes in levels.items():
-        for level, shape in zip((1, 2, 3, 4), shapes):
+        for level, shape in enumerate(shapes, 1):
             f1 = torch.randn(shape, generator=gen, device=dev)
             f2 = torch.randn(shape, generator=gen, device=dev)
             ms = graph_ms(lambda: cost_volume_kernel(f1, f2, MD))
@@ -2560,10 +2570,17 @@ def phase_mse_cli(dev, smi):
 
 # Serving and tool entry points: torch.export artifacts, arflow-torch-stream
 # and arflow-torch-fit-penalty.
-EXPORT_SETUPS = (  # (key, config, batch, H, W, kind)
-    ("uflow_b8", None, B, H, W, "mono"),
-    ("uflow_stream_b1", None, 1, H, W, "stream"),
-    ("prob_a_b8", "sintel_uflow_elbo_inference.json", PB, PH, PW, "mono"),
+# (key, config, batch, H, W, kind, cost-volume launches per output). The
+# config: None for chairs_uflow.json, a shipped config's name, or a model
+# section (the PWC-Lite family, which no shipped config uses).
+PWCLITE_CFG = {"type": "pwclite", "n_frames": 2}
+PWCLITE3_CFG = {"type": "pwclite", "n_frames": 3}
+EXPORT_SETUPS = (
+    ("uflow_b8", None, B, H, W, "mono", 4),
+    ("uflow_stream_b1", None, 1, H, W, "stream", 4),
+    ("prob_a_b8", "sintel_uflow_elbo_inference.json", PB, PH, PW, "mono", 4),
+    ("pwclite_b8", PWCLITE_CFG, B, H, W, "mono", 5),
+    ("pwclite3_stream_b1", PWCLITE3_CFG, 1, H, W, "stream", 10),
 )
 EXPORT_STREAM_FRAMES = 8
 EXPORT_TIMING_ITERS = 10
@@ -2618,13 +2635,13 @@ for case in json.loads(sys.argv[1]):
         load_s = time.perf_counter() - t0
         seq = [f.cuda() for f in data["frames"]]
         launches, errs = [], {"flow": (0.0, 0.0)}
-        for t, f in enumerate(seq):
+        for f in seq:
             reset_launch_counts()
             res = art.push(f)
             torch.cuda.synchronize()
-            if t:
+            if res is not None:  # the window is full
                 launches.append(COST_VOLUME.launches)
-                e, s = gap(res["flow"], data["flows"][t - 1].cuda())
+                e, s = gap(res["flow"], data["flows"][len(launches) - 1].cuda())
                 errs["flow"] = (max(e, errs["flow"][0]), max(s, errs["flow"][1]))
         t0 = time.perf_counter()
         for _ in range(2):
@@ -2632,7 +2649,8 @@ for case in json.loads(sys.argv[1]):
                 art.push(f)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        rate = {"flows_per_s": 2 * len(seq) / dt}
+        rate = {"flows_per_s": 2 * len(seq) / dt,
+                "outputs": [len(launches), len(data["flows"])]}
     out.append({"key": case["key"], "load_s": load_s, "launches": launches,
                 "errs": errs, **rate})
 bad = sorted(m for m in sys.modules
@@ -2642,19 +2660,31 @@ print(json.dumps({"cases": out, "imported": bad}))
 """
 
 
+def export_config(name):
+    """The config of an ``EXPORT_SETUPS`` entry."""
+    if name is None:
+        return load_config(CONFIG)
+    if isinstance(name, dict):
+        return Config({"model": name, "loss": {}})
+    return prob_config(name, {})
+
+
 def phase_export(dev, smi, tmp):
     """``torch.export`` artifacts of the serving forward on the card:
     chairs_uflow.json at 384x640 b8 and its streaming programs at b1, setup
-    (a) with its entropy at 448x1024 b8. Each is exported, saved, loaded in
-    a fresh interpreter that must not import the models, run and held to
-    the eager model within FLOW_RTOL x max, with 4 cost-volume launches per
-    forward. Returns the launches per artifact."""
+    (a) with its entropy at 448x1024 b8, the 2-frame PWCLite at 384x640 b8
+    and the 3-frame PWCLite's streaming window at b1. Each is exported,
+    saved, loaded in a fresh interpreter that must not import the models,
+    run and held to the eager model within FLOW_RTOL x max, with 4
+    cost-volume launches per forward (5 for the PWCLite, 10 per 3-frame
+    window). Returns the launches per artifact."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    cases, rows = [], {}
-    for key, name, b, h, w, kind in EXPORT_SETUPS:
-        cfg = load_config(CONFIG) if name is None else prob_config(name, {})
-        model = (get_model(cfg.model, device=dev, seed=SEED) if name is None
-                 else prob_model(cfg, dev))
+    cases, rows, wants = [], {}, {}
+    for key, name, b, h, w, kind, want in EXPORT_SETUPS:
+        cfg = export_config(name)
+        wants[key] = want
+        model = (prob_model(cfg, dev) if isinstance(name, str)
+                 else get_model(cfg.model, device=dev, seed=SEED))
         sd = model.state_dict()
         path = os.path.join(tmp, f"{key}.afx")
         data = os.path.join(tmp, f"{key}.pt")
@@ -2698,7 +2728,8 @@ def phase_export(dev, smi, tmp):
                 eager = {"eager_flows_per_s": 2 * len(seq) / (time.perf_counter() - t0)}
                 torch.save({"frames": [f.cpu() for f in seq],
                             "flows": [f.cpu() for f in flows]}, data)
-        rows[key] = {"kind": kind, "shape": [b, h, w], "config": name or "chairs_uflow.json",
+        rows[key] = {"kind": kind, "shape": [b, h, w],
+                     "config": name or "chairs_uflow.json",
                      "export_s": export_s, "bytes": os.path.getsize(path), **eager}
         cases.append({"key": key, "kind": kind, "path": path, "data": data,
                       "iters": EXPORT_TIMING_ITERS})
@@ -2720,17 +2751,21 @@ def phase_export(dev, smi, tmp):
     failures, launches = [], {}
     for res in child["cases"]:
         row = rows[res["key"]]
-        want = 4
+        want = wants[res["key"]]
         launches[res["key"]] = sum(res["launches"])
         errs = {k: {"max_abs_err": e, "atol": FLOW_RTOL * max(s, 1.0)}
                 for k, (e, s) in res["errs"].items()}
         row.update(load_s=res["load_s"], launches=res["launches"], errs=errs,
                    card_free_gb_at_load=free_gb,
                    **{k: res[k] for k in ("ms_per_batch", "maps_per_s",
-                                          "flows_per_s") if k in res})
+                                          "flows_per_s", "outputs")
+                                if k in res})
         emit({"phase": "export", "key": res["key"], **row, "card": smi})
         if any(n != want for n in res["launches"]):
             failures.append(f"{res['key']}: launches {res['launches']}, not {want} each")
+        if "outputs" in res and res["outputs"][0] != res["outputs"][1]:
+            failures.append(f"{res['key']}: {res['outputs'][0]} streamed flows, "
+                            f"not the eager engine's {res['outputs'][1]}")
         for k, e in errs.items():
             if not e["max_abs_err"] <= e["atol"]:
                 failures.append(f"{res['key']} {k}: {e['max_abs_err']} > {e['atol']}")
@@ -3433,6 +3468,274 @@ def phase_train_switches(cfg, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The PWC-Lite family (phases pwclite_kernels, pwclite_inference,
+# pwclite_serving; its artifacts run in phase export)
+
+PWCLITE_CHANNELS = (192, 128, 96, 64, 32)  # decode levels 1/64 .. 1/4
+PWCLITE_UFLOW_CFG = {"type": "pwclite_uflow", "n_frames": 2,
+                     "feature_norm": True}
+PWCLITE_SETUPS = (  # (key, model section, cost-volume launches per forward)
+    ("pwclite", PWCLITE_CFG, 5),
+    ("pwclite_prob", {"type": "pwclite_prob", "n_frames": 2}, 5),
+    ("pwclite_uflow", PWCLITE_UFLOW_CFG, 4),
+)
+PWCLITE_ITERS = 20
+
+
+def pwclite_level_shapes(b, h, w):
+    """The cost volume's (B, C, H, W) at the PWCLite's decode levels."""
+    return [(b, c, h >> lv, w >> lv)
+            for lv, c in zip((6, 5, 4, 3, 2), PWCLITE_CHANNELS)]
+
+
+def pwclite_uflow_level_shapes(b, h, w):
+    """... and at the PWCLiteUflow's (C = 32, 1/32 .. 1/4)."""
+    return [(b, 32, h >> lv, w >> lv) for lv in (5, 4, 3, 2)]
+
+
+def plain_pwclite_cost_volume():
+    """The plain cost volume swapped into the PWC-Lite family's
+    correlation (``models/pwclite.py:correlate``)."""
+    return mock.patch.object(pwclite_module, "compute_cost_volume",
+                             compute_cost_volume_reference)
+
+
+def phase_pwclite_kernels(dev, smi):
+    """The forward kernel against its plain version, then timed, at every
+    level shape of the PWCLite at 384x640 b8 (C up to 192, a coarsest map
+    of 6x10: W % 4 != 0, less than one tile row) and b1 (the 3-frame
+    stream, the 5-frame forward and the streaming artifact) and at
+    448x1024 b1 (7x16), and of the PWCLiteUflow at 384x640 b8."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    levels = {"pwclite_b8": pwclite_level_shapes(B, H, W),
+              "pwclite_b1": pwclite_level_shapes(1, H, W),
+              "pwclite_448x1024_b1": pwclite_level_shapes(1, PH, PW),
+              "pwclite_uflow_b8": pwclite_uflow_level_shapes(B, H, W)}
+    checks = [(shape, MD, 0) for shapes in levels.values() for shape in shapes]
+    return check_forward(checks, gen, dev), time_forward(levels, gen, dev, smi)
+
+
+def check_vs_plain(name, outs, plain, channels=((0, 2),)):
+    """Each channel group of the finest outputs against the plain cost
+    volume's within FLOW_RTOL x max (at least 1); the errors."""
+    errs = {}
+    for lo, hi in channels:
+        scale = max(float(plain[0][..., lo:hi].abs().max()), 1.0)
+        err = max_abs(outs[0][..., lo:hi], plain[0][..., lo:hi])
+        errs[f"{lo}:{hi}"] = {"max_abs_err": err, "atol": FLOW_RTOL * scale}
+        if not err <= FLOW_RTOL * scale:
+            raise AssertionError(f"{name} channels {lo}:{hi} kernel vs plain: "
+                                 f"{err} > {FLOW_RTOL * scale}")
+    return errs
+
+
+def counted_forward(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (outputs, cost-volume launches)."""
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, COST_VOLUME.launches
+
+
+def pwclite_forward_checks(key, model_cfg, want, b, h, w, gen, dev):
+    """One forward of ``model_cfg`` at b x h x w: shapes, finiteness, the
+    launches, and the finest outputs against the plain cost volume.
+    Returns (model, images, outputs, launches, errors)."""
+    model = get_model(Config(model_cfg), device=dev, seed=SEED)
+    img1, img2 = shifted_pair(b, h, w, 2, 3, gen, dev)
+    with torch.inference_mode():
+        res, launches = counted_forward(lambda: model(img1, img2))
+        with plain_pwclite_cost_volume():
+            plain = model(img1, img2)
+        torch.cuda.synchronize()
+    outs = res["flows_fw"]
+    if COST_VOLUME.launches != launches:
+        raise AssertionError(f"{key}: the plain run launched the kernel")
+    if launches != want:
+        raise AssertionError(f"{key}: {launches} launches, not {want}")
+    if not all(bool(torch.isfinite(f).all()) for f in outs):
+        raise AssertionError(f"{key}: non-finite output")
+    if outs[0].shape[:3] != (b, h, w) or outs[0].dtype != torch.float32:
+        raise AssertionError(f"{key}: finest output {tuple(outs[0].shape)} "
+                             f"{outs[0].dtype}")
+    channels = ((0, 2), (2, 4)) if outs[0].shape[-1] == 4 else ((0, 2),)
+    errs = check_vs_plain(key, outs, plain["flows_fw"], channels)
+    return model, (img1, img2), outs, launches, errs
+
+
+def phase_pwclite_inference(dev, smi):
+    """The PWC-Lite family's 2-frame inference at 384x640 b8, float32:
+    ``pwclite``, ``pwclite_prob`` (flow and log-variance) and
+    ``pwclite_uflow`` with ``feature_norm``, each against the same model
+    with the plain cost volume, timed (CUDA events over PWCLITE_ITERS
+    forwards), profiled and its conv FLOPs counted; the pwclite on a small
+    input against the CPU; b1 forwards of pwclite_uflow with
+    ``align_corners: false`` and with ``warp_pad: border``; and a bf16
+    forward of pwclite against float32. Returns the launches per run."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    launches = {}
+    for key, model_cfg, want in PWCLITE_SETUPS:
+        model, imgs, outs, n, errs = pwclite_forward_checks(
+            key, model_cfg, want, B, H, W, gen, dev)
+        launches[key] = n
+
+        def forward():
+            return model(*imgs)
+
+        with torch.inference_mode():
+            ms = cuda_ms(forward, iters=PWCLITE_ITERS)
+            prof = profile_window(forward, 3, ms)
+        flops = conv_flops(model, *imgs)
+        emit({"phase": "pwclite_inference", "key": key, "model": model_cfg,
+              "shape": [B, H, W], "dtype": "float32", "launches": n,
+              "output_shapes": [list(o.shape) for o in outs],
+              "vs_plain": errs, "ms_per_batch": ms,
+              "maps_per_s": B / (ms / 1e3), "conv_gflop": flops / 1e9,
+              "conv_bound_ms_f32": 1e3 * flops / PEAK_F32_FLOP_PER_S,
+              **{k: prof[k] for k in (
+                  "device_ms_per_call", "busy_share", "conv_ms_per_call",
+                  "cost_volume_fwd_ms_per_call", "cost_volume_fwd_share",
+                  "kernel_launches_per_call", "top_kernels")},
+              "card": smi})
+        if key == "pwclite":
+            # A small input against the same weights on the CPU, whose
+            # plain path the CPU tests hold to the JAX package.
+            a, b = shifted_pair(1, 64, 128, 1, 2, gen, dev)
+            cpu = get_model(Config(model_cfg), device="cpu", seed=SEED)
+            with torch.inference_mode():
+                small = model(a, b, with_bk=True)
+                small_cpu = cpu(a.cpu(), b.cpu(), with_bk=True)
+            err = max(max_abs(x.cpu(), y) for k in ("flows_fw", "flows_bw")
+                      for x, y in zip(small[k], small_cpu[k]))
+            scale = max(float(y.abs().max()) for y in small_cpu["flows_fw"])
+            tol = FLOW_RTOL * max(scale, 1.0)
+            emit({"phase": "pwclite_small_vs_cpu", "shape": [1, 64, 128],
+                  "max_abs_err": err, "atol": tol})
+            if not err <= tol:
+                raise AssertionError(f"pwclite cuda vs cpu: {err} > {tol}")
+            m32 = model
+        del model
+    for opt in ({"align_corners": False}, {"warp_pad": "border"}):
+        key = "pwclite_uflow_" + "_".join(f"{k}_{v}" for k, v in opt.items())
+        _, _, _, n, errs = pwclite_forward_checks(
+            key, dict(PWCLITE_UFLOW_CFG, **opt), 4, 1, H, W, gen, dev)
+        launches[key] = n
+        emit({"phase": "pwclite_inference", "key": key, "shape": [1, H, W],
+              "launches": n, "vs_plain": errs})
+
+    # bf16 from the float32 pwclite's weights
+    m16 = get_model(bf16_model_cfg(Config(PWCLITE_CFG)), device=dev)
+    m16.load_state_dict(m32.state_dict(), strict=True)
+    img1, img2 = shifted_pair(B, H, W, 2, 3, gen, dev)
+    with torch.inference_mode():
+        out16, n16 = counted_forward(lambda: m16(img1, img2)["flows_fw"])
+        out32 = m32(img1, img2)["flows_fw"]
+        rel = check_bf16_outputs("pwclite b8", out16, out32)
+        ms32, ms16, turns = timed_pair(lambda: m32(img1, img2),
+                                       lambda: m16(img1, img2), iters=10)
+    launches["pwclite_bf16"] = n16
+    emit({"phase": "pwclite_bf16", "shape": [B, H, W], "launches": n16,
+          "rel_gap_per_level_vs_f32": rel, "rel_bound": BF16_REL,
+          "ms_per_batch_f32": ms32, "ms_per_batch_bf16": ms16,
+          "ms_turns_32_16_16_32": turns, "maps_per_s_bf16": B / (ms16 / 1e3),
+          "card": smi})
+    if n16 != 5:
+        raise AssertionError(f"pwclite bf16: {n16} launches, not 5")
+    return launches
+
+
+def phase_pwclite_serving(dev, smi):
+    """The 3-frame PWCLite's streaming window at 384x640 b1 over
+    STREAM_FRAMES frames, with and without ``with_bw``: each flow and
+    backward flow within FLOW_RTOL x max of the monolithic 3-frame forward
+    on that window, one pyramid per frame, 10 launches per window; flows/s
+    (host clock over 60 pushes); and one 5-frame forward, with ``with_bk``,
+    against its chained 3-frame windows. Returns the launches per run."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    m = 4 * STREAM_FRAMES
+    tex = texture(1, H + m, W + m, gen, dev)
+    seq = [tex[:, :, 2 * t:2 * t + H, 3 * t:3 * t + W].permute(0, 2, 3, 1)
+           .contiguous() for t in range(STREAM_FRAMES)]
+    model = get_model(Config(PWCLITE3_CFG), device=dev, seed=SEED)
+    state = model.state_dict()
+    launches = {}
+    for with_bw in (False, True):
+        engine = StreamingFlowEngine(Config(PWCLITE3_CFG), state,
+                                     with_bw=with_bw, device=dev)
+        outs, n = counted_forward(lambda: [engine.push(f) for f in seq])
+        launches["stream_bw" if with_bw else "stream"] = n
+        got = [o for o in outs if o is not None]
+        windows = STREAM_FRAMES - 2
+        if outs[0] is not None or outs[1] is not None or len(got) != windows:
+            raise AssertionError("pwclite 3-frame stream: wrong number of outputs")
+        if engine.pyramids_computed != STREAM_FRAMES:
+            raise AssertionError(f"{engine.pyramids_computed} pyramids computed")
+        if n != 10 * windows:
+            raise AssertionError(f"3-frame stream: {n} launches, not {10 * windows}")
+        err, scale = 0.0, 1.0
+        with torch.inference_mode():
+            for t, out in enumerate(got):
+                mono = model(*seq[t:t + 3])
+                pairs = [(out["flow"], mono["flows_fw"][0])]
+                if with_bw:
+                    pairs.append((out["flow_bw"], mono["flows_bw"][0]))
+                for a, b in pairs:
+                    if not bool(torch.isfinite(a).all()):
+                        raise AssertionError("non-finite 3-frame streaming flow")
+                    err = max(err, max_abs(a, b))
+                    scale = max(scale, float(b.abs().max()))
+        tol = FLOW_RTOL * scale
+        emit({"phase": "pwclite_serving", "with_bw": with_bw,
+              "frames": STREAM_FRAMES, "flows": len(got),
+              "pyramids": engine.pyramids_computed, "launches": n,
+              "vs_monolithic_max_abs_err": err, "atol": tol})
+        if not err <= tol:
+            raise AssertionError(f"3-frame stream vs monolithic: {err} > {tol}")
+
+    engine = StreamingFlowEngine(Config(PWCLITE3_CFG), state, device=dev)
+    for f in seq[:3]:  # warm-up
+        engine.push(f)
+    torch.cuda.synchronize()
+    rounds = 5
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for f in seq:
+            engine.push(f)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = rounds * STREAM_FRAMES
+    frames = iter(seq * 2)
+    prof = profile_window(lambda: engine.push(next(frames)), STREAM_FRAMES,
+                          1e3 * dt / n)
+    emit({"phase": "pwclite_serving_time", "shape": [1, H, W], "flows": n,
+          "seconds": dt, "flows_per_s": n / dt,
+          **{k: prof[k] for k in ("device_ms_per_call", "busy_share",
+                                  "kernel_launches_per_call", "top_kernels")},
+          "card": smi})
+
+    # the 5-frame network: its windows are the 3-frame network's
+    five = get_model(Config(dict(PWCLITE3_CFG, n_frames=5)), device=dev)
+    five.load_state_dict(state, strict=True)
+    with torch.inference_mode():
+        res, n = counted_forward(lambda: five(*seq[:5], with_bk=True))
+        win = [model(*seq[s:s + 3]) for s in range(3)]
+        want = {"flows_fw": [win[0]["flows_fw"], win[1]["flows_fw"]],
+                "flows_bw": [win[1]["flows_bw"], win[2]["flows_bw"]]}
+        err = max(max_abs(a[0], b[0]) for k in want
+                  for a, b in zip(res[k], want[k]))
+        scale = max(float(b[0].abs().max()) for k in want for b in want[k])
+    launches["five_frames"] = n
+    emit({"phase": "pwclite_5frame", "shape": [1, H, W], "launches": n,
+          "vs_windows_max_abs_err": err, "atol": FLOW_RTOL * max(scale, 1.0)})
+    if n != 30:
+        raise AssertionError(f"5-frame forward: {n} launches, not 30")
+    if not err <= FLOW_RTOL * max(scale, 1.0):
+        raise AssertionError(f"5-frame vs its windows: {err}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3482,6 +3785,13 @@ def main() -> int:
     seconds.update(tool_seconds)
     bf16_launches = timed("bf16", phase_bf16, cfg, dev, smi)
     remat_launches = timed("train_switches", phase_train_switches, cfg, dev, smi)
+    lite_err, lite_levels = timed("pwclite_kernels", phase_pwclite_kernels,
+                                  dev, smi)
+    lite_launches = {
+        "inference": timed("pwclite_inference", phase_pwclite_inference, dev, smi),
+        "serving": timed("pwclite_serving", phase_pwclite_serving, dev, smi),
+        "export": {k: v for k, v in export_launches.items()
+                   if k.startswith("pwclite")}}
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [{
         "name": COST_VOLUME.name,
@@ -3489,7 +3799,7 @@ def main() -> int:
         "source": COST_VOLUME.source,
         "replaces": COST_VOLUME.replaces,
         "launches": launches["cost_volume"],
-        "max_abs_err": max(max_err, prob_err, elbo_err, mse_err),
+        "max_abs_err": max(max_err, prob_err, elbo_err, mse_err, lite_err),
         # One 2-frame forward's worth at b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in per_level["b8"]),
         "plain_ms": sum(r["plain_ms"] for r in per_level["b8"]),
@@ -3544,6 +3854,18 @@ def main() -> int:
         # One uflow step at 256x448 b8 with train.remat: the forward's 8 and
         # the 8 of the recomputed decoder levels (phase train_switches).
         "launches_remat": remat_launches["cost_volume"],
+        # The PWC-Lite family (phases pwclite_*, and its artifacts in phase
+        # export): one b8 forward of each type (5, 5 and 4), the b1
+        # pwclite_uflow variants and the bf16 pwclite; the 3-frame stream
+        # over 12 frames (10 per window) and one 5-frame forward with
+        # with_bk (30); the b8 artifact (5) and the 3-frame streaming
+        # artifact (10 per window).
+        "launches_pwclite": lite_launches,
+        # One forward's worth at each PWC-Lite level set: 384x640 b8 and b1
+        # and 448x1024 b1 (5 levels, C 192 .. 32), the PWCLiteUflow's at
+        # 384x640 b8 (4 levels, C 32).
+        **{f"{what}_{key}": sum(r[what] for r in lite_levels[key])
+           for key in lite_levels for what in ("ms", "plain_ms", "bound_ms")},
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",

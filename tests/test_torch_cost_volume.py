@@ -342,3 +342,31 @@ def test_cuda_kernel_rounds_as_plain_at_level_shapes(shape):
     out = cost_volume_kernel(f1, f2, 4)
     torch.testing.assert_close(out, compute_cost_volume_reference(f1, f2, 4),
                                rtol=0, atol=0)
+
+
+# The PWC-Lite levels (C = 192, 128, 96, 64, 32 from 1/64 to 1/4): at
+# 384x640 b8, whose coarsest map 6x10 has W % 4 != 0 (the 4-byte copies)
+# and fills less than one tile row, at 384x640 b1 (the 3-frame stream and
+# the 5-frame forward), and at 448x1024 b1 (7x16 coarsest).
+PWCLITE_LEVELS = [
+    (b, c, h >> lv, w >> lv)
+    for b, h, w in ((8, 384, 640), (1, 384, 640), (1, 448, 1024))
+    for lv, c in zip((6, 5, 4, 3, 2), (192, 128, 96, 64, 32))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PWCLITE_LEVELS)
+def test_cuda_kernel_at_pwclite_level_shapes(shape):
+    """The forward kernel, through the op, against its plain version at the
+    PWC-Lite family's level shapes; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    f1 = torch.randn(shape, device="cuda", generator=gen)
+    f2 = torch.randn(shape, device="cuda", generator=gen)
+    before = COST_VOLUME.launches
+    out = compute_cost_volume(f1, f2, 4)
+    torch.cuda.synchronize()
+    assert COST_VOLUME.launches == before + 1
+    torch.testing.assert_close(out, compute_cost_volume_reference(f1, f2, 4),
+                               rtol=0, atol=2e-6)

@@ -63,6 +63,8 @@ ENTRY_AND_DATA = [
     "arflow_tpu_torch.losses.mse", "arflow_tpu_torch.training.mse_trainer",
     "arflow_tpu_torch.serving.export", "arflow_tpu_torch.serving.engine",
     "arflow_tpu_torch.tools", "arflow_tpu_torch.tools.penalty_em",
+    "arflow_tpu_torch.models.pwclite", "arflow_tpu_torch.models.pwclite_prob",
+    "arflow_tpu_torch.models.pwclite_uflow",
 ]
 
 
@@ -78,10 +80,14 @@ def test_port_and_chip_smoke_import_no_jax():
     assert bad == "[]", bad
 
 
+@pytest.mark.parametrize("model_cfg", [
+    CFG, {"type": "pwclite", "n_frames": 2}, {"type": "pwclite", "n_frames": 3},
+    {"type": "pwclite_prob", "n_frames": 2},
+    {"type": "pwclite_uflow", "n_frames": 2}])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
-                                                           tmp_path):
+                                                           tmp_path, model_cfg):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = Config(CFG)
+    cfg = Config(model_cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         get_model(cfg)
     sd = get_model(cfg, device="cpu").state_dict()
@@ -95,9 +101,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         load_pretrained(path, cfg)
 
 
+# The PWC-Lite family is ported; int8 is not, for any model type (the
+# PWC-Lite types have no int8 path in the JAX package either).
 @pytest.mark.parametrize("model_cfg", [
-    {"type": "pwclite", "n_frames": 2},
-    {"type": "pwclite_prob", "n_frames": 2},
+    {"type": "pwclite", "n_frames": 2, "dtype": "int8"},
+    {"type": "pwclite_prob", "n_frames": 2, "dtype": "int8"},
     {"type": "uflow", "dtype": "int8"},
 ])
 def test_unported_configs_raise_and_name_the_roadmap(model_cfg):

@@ -110,14 +110,21 @@ def test_refusals(mono, stream, tmp_path, monkeypatch):
         export.load_artifact(mono)(img, img)
     with pytest.raises(ValueError, match="static shapes"):
         export.load_streaming_artifact(stream).push(np.zeros((2, H, W, 3)))
-    for model in ({"type": "pwclite", "n_frames": 3},
-                  {"type": "pwclite_uflow"}):
-        with pytest.raises(NotImplementedError, match="3-frame PWC-Lite"):
-            export.export_inference(Config({"model": model}), {}, 1, (H, W),
-                                    device="cpu")
-        with pytest.raises(NotImplementedError, match="3-frame PWC-Lite"):
-            export.export_streaming(Config({"model": model}), {}, 1, (H, W),
-                                    device="cpu")
+    # The PWC-Lite family exports (tests/test_torch_pwclite_export.py);
+    # what it refuses: a pair artifact of the 3-frame network, the 5-frame
+    # one's stream, and a type neither package builds.
+    with pytest.raises(ValueError, match="image pair"):
+        export.export_inference(
+            Config({"model": {"type": "pwclite", "n_frames": 3}}), {}, 1,
+            (H, W), device="cpu")
+    with pytest.raises(ValueError, match="5-frame variant"):
+        export.export_streaming(
+            Config({"model": {"type": "pwclite", "n_frames": 5}}), {}, 1,
+            (H, W), device="cpu")
+    for export_fn in (export.export_inference, export.export_streaming):
+        with pytest.raises(NotImplementedError, match="flownet_prob"):
+            export_fn(Config({"model": {"type": "flownet_prob"}}), {}, 1,
+                      (H, W), device="cpu")
     mixture = Config({"model": {"type": "uflow_prob", "out_channels": [2, 2, 0],
                                 "n_pyramids": 2, "mixture_weights": True}})
     with pytest.raises(ValueError, match="mixture_weights"):

@@ -113,14 +113,15 @@ def test_load_pretrained_reads_a_msgpack(jax_ckpt):
 
 
 def test_refusals(tmp_path):
-    """An orbax directory, a resume from a msgpack (its Adam moments) and
-    the PWC-Lite types raise, naming the roadmap."""
+    """An orbax directory and a resume from a msgpack (its Adam moments)
+    raise, naming the roadmap; a model type neither package builds raises
+    (the PWC-Lite types convert: tests/test_torch_pwclite_weights.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         load_jax_checkpoint(str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         load_checkpoint(str(tmp_path / "model_ckpt.msgpack"))
-    with pytest.raises(NotImplementedError, match="PWC-Lite"):
-        state_dict_from_jax({"params": {}}, Config({"type": "pwclite"}))
+    with pytest.raises(NotImplementedError, match="flownet_prob"):
+        state_dict_from_jax({"params": {}}, Config({"type": "flownet_prob"}))
 
 
 def test_inference_cli_takes_a_msgpack(tmp_path, monkeypatch):

@@ -163,7 +163,7 @@ def engine_entropy(eng, fp_prev, cfg):
     """The entropy of the engine's pair (``fp_prev``, its cached pyramids)
     with the artifact's draws injected (``artifact_draws``)."""
     with torch.no_grad():
-        flows = eng._flows(fp_prev, eng._prev)
+        flows = eng._flows(fp_prev, eng._prev[-1])
         return extract_uv_entropy(flows, cfg.loss, {"flows_fw": flows},
                                   draws=artifact_draws(cfg))
 
@@ -184,7 +184,7 @@ def check_streaming(cfg, sd, stream, jax_stream, jax_entropy=True):
         assert art.push(seq[0]) is None and eng.push(seq[0]) is None
         assert jart.push(seq[0]) is None
         for cur in seq[1:]:
-            fp_prev = eng._prev
+            fp_prev = eng._prev[-1]
             out, want, jout = art.push(cur), eng.push(cur), jart.push(cur)
             assert sorted(out) == sorted(want) == sorted(jout)
             assert ("entropy" in out) == ("approx" in cfg.loss)
