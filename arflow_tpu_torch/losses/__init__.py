@@ -1,16 +1,16 @@
-"""Loss factory of the port: ``type: "uflow"``, ``"uflow_elbo"`` and
-``"mse"``. The other losses raise and name the roadmap item that brings
-them."""
+"""Loss factory of the port: ``type: "uflow"``, ``"uflow_elbo"``,
+``"mse"``, and the PWC-Lite family's ``"unflow"``, ``"elbo"`` and
+``"fullres"``."""
 
+from arflow_tpu_torch.losses.elbo import ElboLoss  # noqa: F401
+from arflow_tpu_torch.losses.fullres import FullResLoss  # noqa: F401
 from arflow_tpu_torch.losses.mse import MseLoss  # noqa: F401
 from arflow_tpu_torch.losses.uflow import UFlowLoss  # noqa: F401
 from arflow_tpu_torch.losses.uflow_elbo import UFlowElboLoss  # noqa: F401
+from arflow_tpu_torch.losses.unflow import UnFlowLoss  # noqa: F401
 
-_NOT_PORTED = {
-    "unflow": "'the PWC-Lite family'",
-    "elbo": "'the PWC-Lite family'",
-    "fullres": "'the PWC-Lite family'",
-}
+_LOSSES = {"uflow": UFlowLoss, "uflow_elbo": UFlowElboLoss, "mse": MseLoss,
+           "unflow": UnFlowLoss, "elbo": ElboLoss, "fullres": FullResLoss}
 
 
 def get_loss(cfg):
@@ -18,14 +18,6 @@ def get_loss(cfg):
     ``type``, or ``name`` where a config has no ``type``
     (``configs/chairs_uflow_elbo.json``)."""
     kind = cfg.get("type", cfg.get("name"))
-    if kind == "uflow":
-        return UFlowLoss(cfg)
-    if kind == "uflow_elbo":
-        return UFlowElboLoss(cfg)
-    if kind == "mse":
-        return MseLoss(cfg)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"loss type {kind!r} is not ported yet: ROADMAP.md queue 1, "
-            f"{_NOT_PORTED[kind]}")
-    raise NotImplementedError(kind)
+    if kind not in _LOSSES:
+        raise NotImplementedError(kind)
+    return _LOSSES[kind](cfg)

@@ -1,14 +1,19 @@
-"""Building blocks of the ELBO loss (port of ``arflow_tpu/losses/blocks.py``):
-the per-pixel data terms before their penalty, for one direction and for
-both in one batch, and the edge-aware smoothness weights.
+"""Building blocks of the losses (port of ``arflow_tpu/losses/blocks.py``):
+the ELBO loss's per-pixel data terms before their penalty (census and
+ssim), for one direction and for both in one batch, and its edge-aware
+smoothness weights; and the ARFlow losses' ternary distance and
+first- and second-order edge-aware smoothness.
 
 Tensors come and go NHWC, as in the JAX package; the port's ops run NCHW
 inside. What the JAX package passes through ``stop_gradient`` is detached
 here: the images as warp sources and smoothness weights, and the masks.
 
 The per-sample warp is exact. The JAX package's opt-in Taylor warp
-(``taylor_warp``) is not ported, and ``ssim`` comes with the PWC-Lite
-family; both raise.
+(``taylor_warp``) is not ported and raises.
+
+The ARFlow blocks (``ternary_loss``, ``smooth_grad_1st``,
+``smooth_grad_2nd``) take and return NCHW tensors, as the losses that
+call them work inside.
 """
 
 from __future__ import annotations
@@ -25,22 +30,31 @@ from arflow_tpu_torch.ops import (
     resample,
     upsample,
 )
-from arflow_tpu_torch.ops.census import census_loss_no_penalty
+from arflow_tpu_torch.ops.census import (
+    census_loss_no_penalty,
+    census_transform,
+)
+from arflow_tpu_torch.ops.ssim import ssim_loss
 
-SSIM_NOT_PORTED = ("the ssim data loss is not ported yet: ROADMAP.md queue 1, "
-                   "'the PWC-Lite family' (ops/ssim.py)")
 
-
-def _census_terms(data_loss, targets, recons, mask, **kwargs):
-    """(pixel losses, pixel weights) per entry of ``data_loss``, NHWC."""
+def _data_terms(data_loss, targets, recons, mask, num_groups=1, a_rep=1):
+    """(pixel losses, pixel weights) per entry of ``data_loss``, NHWC. The
+    census transform of ``targets`` runs once for its ``a_rep`` copies;
+    ssim takes the targets tiled. An ssim pixel loss is the list of its
+    two distances, each penalized and summed by the caller."""
     pixel_loss, pixel_weight = [], []
     for loss_type in data_loss:
-        if loss_type == "ssim":
-            raise NotImplementedError(SSIM_NOT_PORTED)
-        if loss_type != "census":
+        if loss_type == "census":
+            loss, weight = census_loss_no_penalty(
+                targets, recons, mask, num_groups=num_groups, a_rep=a_rep)
+            loss = to_nhwc(loss)
+        elif loss_type == "ssim":
+            loss, weight = ssim_loss(_tile_groups(targets, a_rep, num_groups),
+                                     recons, mask, num_groups=num_groups)
+            loss = [to_nhwc(d) for d in loss]
+        else:
             raise NotImplementedError(loss_type)
-        loss, weight = census_loss_no_penalty(targets, recons, mask, **kwargs)
-        pixel_loss.append(to_nhwc(loss))
+        pixel_loss.append(loss)
         pixel_weight.append(to_nhwc(weight))
     return pixel_loss, pixel_weight
 
@@ -77,8 +91,8 @@ def data_loss_no_penalty(im1_0, im2_0, flow12_2, flow21_2, occ_type: str,
     mask_0 = valid_mask_0
     if occu_mask_2 is not None:
         mask_0 = upsample(occu_mask_2, is_flow=False, scale_factor=4.0) * mask_0
-    pixel_loss, pixel_weight = _census_terms(data_loss, im1_0, im1_recons,
-                                             mask_0.detach())
+    pixel_loss, pixel_weight = _data_terms(data_loss, im1_0, im1_recons,
+                                           mask_0.detach())
     return (pixel_loss, pixel_weight,
             None if occu_mask_2 is None else to_nhwc(occu_mask_2),
             to_nhwc(valid_mask_0))
@@ -140,8 +154,8 @@ def data_loss_no_penalty_bidir(im1_0, im2_0, flow12_2, flow21_2,
     else:
         raise NotImplementedError(f"Occlusion type {occ_type} not implemented!")
 
-    pixel_loss, pixel_weight = _census_terms(data_loss, targets, recons, mask_0,
-                                             num_groups=2, a_rep=n)
+    pixel_loss, pixel_weight = _data_terms(data_loss, targets, recons, mask_0,
+                                           num_groups=2, a_rep=n)
     return (pixel_loss, pixel_weight,
             None if occu_mask_2 is None else to_nhwc(occu_mask_2),
             to_nhwc(valid_mask_0))
@@ -169,3 +183,63 @@ def edge_weights(image, edge_constant, edge_asymp=0.0, stride=1):
     gx, gy = image_grads(to_nchw(image).detach(), stride=stride)
     return (to_nhwc(_edge_weight(gx, edge_constant, edge_asymp)),
             to_nhwc(_edge_weight(gy, edge_constant, edge_asymp)))
+
+
+# -- the ARFlow blocks (NCHW) ----------------------------------------------
+
+def ternary_loss(im, im_warp, max_distance: int = 1, sum_dist: bool = False):
+    """The ternary (census) distance of two NCHW images over a
+    ``2 max_distance + 1`` square, summed or averaged over its taps, and
+    the mask that zeroes a ``max_distance`` border: (dist, mask), each
+    (B,1,H,W)."""
+    patch_size = 2 * max_distance + 1
+    dist = (census_transform(im, patch_size)
+            - census_transform(im_warp, patch_size)).square()
+    dist_norm = dist / (0.1 + dist)
+    if sum_dist:
+        dist_mean = dist_norm.sum(dim=1, keepdim=True)
+    else:
+        dist_mean = dist_norm.mean(dim=1, keepdim=True)
+    b, _, h, w = im.shape
+    pad = max_distance
+    inner = im.new_zeros((1, 1, h, w))
+    inner[..., pad:h - pad, pad:w - pad] = 1.0
+    return dist_mean, inner.expand(b, 1, h, w)
+
+
+def penalty_uflow(x):
+    """sqrt(x^2 + 0.001^2)."""
+    return torch.sqrt(x.square() + 0.001**2)
+
+
+def _smooth_weights(image, alpha):
+    img_dx, img_dy = image_grads(image)
+    return (torch.exp(-img_dx.abs().mean(dim=1, keepdim=True) * alpha),
+            torch.exp(-img_dy.abs().mean(dim=1, keepdim=True) * alpha))
+
+
+def smooth_grad_1st(flo, image, alpha, penalty: str = "abs"):
+    """First-order edge-aware smoothness of an NCHW flow, weighted by
+    ``exp(-alpha |image gradient|)``; ``penalty`` "abs" or "uflow"."""
+    weights_x, weights_y = _smooth_weights(image, alpha)
+    dx, dy = image_grads(flo)
+    if penalty == "abs":
+        pen = torch.abs
+    elif penalty == "uflow":
+        pen = penalty_uflow
+    else:
+        raise NotImplementedError(penalty)
+    loss_x = weights_x * pen(dx) / 2.0
+    loss_y = weights_y * pen(dy) / 2.0
+    return loss_x.mean() / 2.0 + loss_y.mean() / 2.0
+
+
+def smooth_grad_2nd(flo, image, alpha):
+    """Second-order edge-aware smoothness of an NCHW flow (``|.|``)."""
+    weights_x, weights_y = _smooth_weights(image, alpha)
+    dx, dy = image_grads(flo)
+    dx2, _ = image_grads(dx)
+    _, dy2 = image_grads(dy)
+    loss_x = weights_x[..., :, 1:] * dx2.abs()
+    loss_y = weights_y[..., 1:, :] * dy2.abs()
+    return loss_x.mean() / 2.0 + loss_y.mean() / 2.0

@@ -30,8 +30,9 @@ weights with every entry's penalties (the reference's (B, B, H, W')
 broadcast) unless ``fix_isotropic_broadcast`` is set. It raises where the
 JAX loss raises (``sparse`` with ``inv_cov``, ``mixture`` with
 ``inv_cov``, ``natural_grad``, ``closed_form_smooth`` without ``diag``),
-and on what the port has not taken over: ``taylor_warp`` and ``ssim``;
-it raises when it is built, where the JAX loss raises when called.
+and on what the port has not taken over: ``taylor_warp``; it raises when
+it is built, where the JAX loss raises when called. An ``ssim`` data term
+is its two distances, each penalized and summed.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ from __future__ import annotations
 import torch
 
 from arflow_tpu_torch.losses.blocks import (
-    SSIM_NOT_PORTED,
     data_loss_no_penalty,
     data_loss_no_penalty_bidir,
     edge_weights,
@@ -248,7 +248,9 @@ class UFlowElboLoss:
         loss_warp = out_fw.new_zeros(())
         for pixel_loss, pixel_weight, weight, penalty in zip(
                 pl, pw, cfg.data_weight, data_penalties):
-            loss_warp = loss_warp + (pixel_weight * weight * penalty(pixel_loss)).sum()
+            for pl in (pixel_loss if isinstance(pixel_loss, list)
+                       else [pixel_loss]):
+                loss_warp = loss_warp + (pixel_weight * weight * penalty(pl)).sum()
 
         # -- smoothness ---------------------------------------------------
         penalty_smooth = self._penalty(cfg.penalty_smooth, "smooth")
@@ -357,8 +359,6 @@ def _refuse(cfg):
             "mixture variational approximation.")
     if cfg.get("closed_form_smooth", False) and cfg.approx != "diag":
         raise NotImplementedError("closed_form_smooth requires diag approximation")
-    if "ssim" in cfg.data_loss:
-        raise NotImplementedError(SSIM_NOT_PORTED)
 
 
 def _occu_penalty(x, alpha=100.0):

@@ -30,6 +30,10 @@ the cost volume takes its float32 round trip (``ops/cost_volume.py``), and
 the flows are returned in float32.
 
 Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
+
+Under ``models/layers.py:rematerialized()`` (``train.remat``) each pyramid
+level and each decode level of the 2-frame networks is a checkpointed
+``remat_region``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from arflow_tpu_torch.models.layers import conv_block, leaky_relu
+from arflow_tpu_torch.models.layers import conv_block, leaky_relu, remat_region
 from arflow_tpu_torch.ops import compute_cost_volume, flow_warp, resize_bilinear
 
 # The published PWC-Lite widths (models/pwclite.py of the JAX package).
@@ -73,7 +77,7 @@ class FeatureExtractor(nn.Module):
             x = x.to(self.compute_dtype)
         pyramid = []
         for level in self.convs:
-            x = level(x)
+            x = remat_region(level, x)
             pyramid.append(x)
         return pyramid[::-1]
 
@@ -223,23 +227,27 @@ class PWCLite(nn.Module):
         flows_10, flows_12 = self.forward_3_frames(fps0[0], fps1[0], fps2[0])
         return self._f32(flows_10), self._f32(flows_12)
 
+    def _decode_level(self, level: int, x1, x2, flow):
+        """One decode level: ``x2`` warped by the upsampled ``flow`` (but
+        at the coarsest level), the correlation, and the estimator's and
+        the context network's residuals added to ``flow``."""
+        x2_warp = x2 if level == 0 else flow_warp(x2, flow)
+        corr = correlate(x1, x2_warp)
+        x1_1by1 = self.conv_1x1[level](x1)
+        x_intm, flow_res = self.flow_estimators(
+            torch.cat([corr, x1_1by1, flow], dim=1))
+        flow = flow + flow_res
+        return flow + self.context_networks(torch.cat([x_intm, flow], dim=1))
+
     def forward_2_frames(self, p1: list, p2: list) -> list:
         b, _, h, w = p1[0].shape
         flow = p1[0].new_zeros((b, 2, h, w))
         flows = []
         for level in range(OUTPUT_LEVEL + 1):
-            x1, x2 = p1[level], p2[level]
-            if level == 0:
-                x2_warp = x2
-            else:
+            if level:
                 flow = upscale(flow, 2, scale=2.0)
-                x2_warp = flow_warp(x2, flow)
-            corr = correlate(x1, x2_warp)
-            x1_1by1 = self.conv_1x1[level](x1)
-            x_intm, flow_res = self.flow_estimators(
-                torch.cat([corr, x1_1by1, flow], dim=1))
-            flow = flow + flow_res
-            flow = flow + self.context_networks(torch.cat([x_intm, flow], dim=1))
+            flow = remat_region(self._decode_level, level, p1[level],
+                                p2[level], flow)
             flows.append(flow)
         if self.upsample:
             flows.append(upscale(flow, 4, scale=4.0))
@@ -283,12 +291,18 @@ class PWCLite(nn.Module):
     def _nhwc(self, flows: list) -> list:
         return [to_nhwc(f) for f in self._f32(flows)]
 
-    def forward(self, *imgs: torch.Tensor, with_bk: bool = False) -> dict:
+    def forward(self, *imgs: torch.Tensor, with_bk: bool = False,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
         """Images NHWC (B,H,W,3) in [0, 1], 2 for the 2-frame network, 3 or
         5 for the 3-frame one -> {'flows_fw'[, 'flows_bw']}, NHWC flows
         (B,h,w,2) finest first, float32. 3 frames: 'flows_fw' 1 -> 2 and
         'flows_bw' 1 -> 0. 5 frames: 'flows_fw' [1 -> 2, 2 -> 3] and with
-        ``with_bk`` 'flows_bw' [2 -> 1, 3 -> 2], each a list of levels."""
+        ``with_bk`` 'flows_bw' [2 -> 1, 3 -> 2], each a list of levels.
+
+        ``train`` and ``generator`` are taken, as the trainers pass them,
+        and change nothing: the network has no dropout (the JAX model's
+        ``train`` gates only a TPU relayout)."""
         n = len(imgs)
         if (n == 2) != (self.n_frames == 2) or n not in (2, 3, 5):
             raise ValueError(

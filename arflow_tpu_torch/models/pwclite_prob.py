@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from arflow_tpu_torch.models.layers import remat_region
 from arflow_tpu_torch.models.pwclite import (
     OUTPUT_LEVEL,
     PWCLite,
@@ -40,28 +41,31 @@ class PWCLiteProb(PWCLite):
                              f"n_frames {n_frames}")
         super().__init__(n_frames, upsample, reduce_dense, dtype)
 
+    def _decode_level(self, level: int, x1, x2, flow, log_var):
+        """One decode level (``PWCLite._decode_level``) with the
+        log-variance beside the flow."""
+        x2_warp = x2 if level == 0 else flow_warp(x2, flow)
+        corr = correlate(x1, x2_warp)
+        x1_1by1 = self.conv_1x1[level](x1)
+        x_intm, out = self.flow_estimators(
+            torch.cat([corr, x1_1by1, flow, log_var], dim=1))
+        flow = flow + out[:, 0:2]
+        log_var = log_var + out[:, 2:4]
+        out = self.context_networks(torch.cat([x_intm, flow, log_var], dim=1))
+        flow = flow + out[:, 0:2]
+        return flow, torch.clamp(log_var + out[:, 2:4], max=LOG_VAR_MAX)
+
     def forward_2_frames(self, p1: list, p2: list) -> list:
         b, _, h, w = p1[0].shape
         flow = p1[0].new_zeros((b, 2, h, w))
         log_var = p1[0].new_full((b, 2, h, w), LOG_VAR_INIT)
         flows, log_vars = [], []
         for level in range(OUTPUT_LEVEL + 1):
-            x1, x2 = p1[level], p2[level]
-            if level == 0:
-                x2_warp = x2
-            else:
+            if level:
                 flow = upscale(flow, 2, scale=2.0)
                 log_var = upscale(log_var, 2, bias=2 * math.log(2))
-                x2_warp = flow_warp(x2, flow)
-            corr = correlate(x1, x2_warp)
-            x1_1by1 = self.conv_1x1[level](x1)
-            x_intm, out = self.flow_estimators(
-                torch.cat([corr, x1_1by1, flow, log_var], dim=1))
-            flow = flow + out[:, 0:2]
-            log_var = log_var + out[:, 2:4]
-            out = self.context_networks(torch.cat([x_intm, flow, log_var], dim=1))
-            flow = flow + out[:, 0:2]
-            log_var = torch.clamp(log_var + out[:, 2:4], max=LOG_VAR_MAX)
+            flow, log_var = remat_region(self._decode_level, level, p1[level],
+                                         p2[level], flow, log_var)
             flows.append(flow)
             log_vars.append(log_var)
         if self.upsample:

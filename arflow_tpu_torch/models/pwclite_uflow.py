@@ -14,7 +14,9 @@ With ``train=True`` and ``level_dropout`` p > 0, each level's (flow
 residual, features) and the context residual are kept or dropped whole:
 one draw ``U[0,1) > p`` per level and one for the context, 5 per
 direction, from the ``torch.Generator`` passed to ``forward``
-(``models/uflow.py:level_dropout``).
+(``models/uflow.py:level_dropout``). Under ``rematerialized()`` each
+pyramid level, each level's estimate and the context network are
+checkpointed ``remat_region``s; the draws stay outside them.
 
 Only the gates-off math is ported: the JAX package turns its W-fold
 pyramid on at inference by default (``arflow_tpu/models/pwclite_uflow.py:
@@ -26,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from arflow_tpu_torch.models.layers import conv_transpose2d
+from arflow_tpu_torch.models.layers import conv_transpose2d, remat_region
 from arflow_tpu_torch.models.pwclite import (
     CORR_CHANNELS,
     ContextNetwork,
@@ -116,6 +118,21 @@ class PWCLiteUflow(nn.Module):
     def _up2(self, flow):
         return upscale(flow, 2, scale=2.0, align_corners=self.align_corners)
 
+    def _estimate(self, level: int, x1, x2, flow, act):
+        """One level's (features, flow residual) before dropout: ``x2``
+        warped by the upsampled ``flow`` (but at the coarsest level), the
+        joint feature normalization, the correlation and the level's
+        estimator, fed the coarser level's features ``act`` through its
+        transposed conv."""
+        x2_warp = x2 if level == 0 else flow_warp(
+            x2, flow, pad=self.warp_pad, align_corners=self.align_corners)
+        if self.feature_norm:
+            x1, x2_warp = normalize_features_joint([x1, x2_warp])
+        inputs = [correlate(x1, x2_warp), x1, flow]
+        if level > 0:
+            inputs.append(self.deconv_networks[level - 1](act))
+        return self.flow_estimators[level](torch.cat(inputs, dim=1))
+
     def forward_2_frames(self, p1: list, p2: list, generator=None) -> list:
         """Coarse-to-fine flow between two pyramids; NCHW flows, finest
         first. With ``generator``, level dropout draws from it
@@ -126,25 +143,16 @@ class PWCLiteUflow(nn.Module):
         act = None
         p = self.level_dropout
         for level in range(OUTPUT_LEVEL + 1):
-            x1, x2 = p1[level], p2[level]
-            if level == 0:
-                x2_warp = x2
-            else:
+            if level:
                 flow = self._up2(flow)
-                x2_warp = flow_warp(x2, flow, pad=self.warp_pad,
-                                    align_corners=self.align_corners)
-            if self.feature_norm:
-                x1, x2_warp = normalize_features_joint([x1, x2_warp])
-            corr = correlate(x1, x2_warp)
-            inputs = [corr, x1, flow]
-            if level > 0:
-                inputs.append(self.deconv_networks[level - 1](act))
-            act, flow_res = self.flow_estimators[level](torch.cat(inputs, dim=1))
+            act, flow_res = remat_region(self._estimate, level, p1[level],
+                                         p2[level], flow, act)
             flow_res, act = level_dropout([flow_res, act], p, generator)
             flow = flow + flow_res
             flows.append(flow)
 
-        flow_fine = self.context_networks(torch.cat([act, flow], dim=1))
+        flow_fine = remat_region(self.context_networks,
+                                 torch.cat([act, flow], dim=1))
         (flow_fine,) = level_dropout([flow_fine], p, generator)
         flow = flow + flow_fine
         flows[-1] = flow

@@ -14,15 +14,23 @@ from arflow_tpu_torch.ops.cost_volume import (  # noqa: F401
     compute_cost_volume_reference,
     normalize_features,
 )
-from arflow_tpu_torch.ops.occlusion import compute_range_map  # noqa: F401
+from arflow_tpu_torch.ops.occlusion import (  # noqa: F401
+    compute_range_map,
+    get_corresponding_map,
+    get_occu_mask_backward,
+    get_occu_mask_bidirection,
+)
 from arflow_tpu_torch.ops.resize import (  # noqa: F401
     downsample,
     image_grads,
+    resize_area,
     resize_bilinear,
     resize_flow,
     upsample,
 )
+from arflow_tpu_torch.ops.ssim import ssim_dist, ssim_loss  # noqa: F401
 from arflow_tpu_torch.ops.warp import (  # noqa: F401
+    border_mask,
     flow_to_warp,
     flow_warp,
     mask_invalid,

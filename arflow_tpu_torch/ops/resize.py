@@ -1,10 +1,13 @@
 """Bilinear image and flow resizing (port of ``arflow_tpu/ops/resize.py``).
 
 The JAX package writes each resize as two interpolation-matrix products with
-torch ``F.interpolate`` weights; here it is ``F.interpolate`` itself. NCHW.
-``_resize_matrix`` keeps those weights as numpy for the host side, and
-``resize_bilinear_np`` applies them there (the data transforms' ``Scale``
-and the resize of output flows in ``inference_main``).
+torch ``F.interpolate`` weights; here the bilinear one is ``F.interpolate``
+itself. NCHW. ``_resize_matrix`` keeps those weights as numpy for the host
+side, and ``resize_bilinear_np`` applies them there (the data transforms'
+``Scale`` and the resize of output flows in ``inference_main``).
+``resize_area`` (the ARFlow losses' image pyramids) is the two matrix
+products of the JAX package, so that its weights are rounded to float32
+as the JAX ones are.
 """
 
 from __future__ import annotations
@@ -17,12 +20,21 @@ import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
-def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """(out_size, in_size) weight matrix, float32, of torch's bilinear
-    ``F.interpolate`` with ``align_corners=False``: half-pixel source
-    coordinates, clamped at 0 (the JAX function's ``"bilinear", False``;
-    its other modes serve ops the port does not have)."""
+def _resize_matrix(in_size: int, out_size: int, mode: str = "bilinear"
+                   ) -> np.ndarray:
+    """(out_size, in_size) weight matrix, float32, of torch's
+    ``F.interpolate``: ``"bilinear"`` with ``align_corners=False``
+    (half-pixel source coordinates, clamped at 0), or ``"area"``
+    (``adaptive_avg_pool``'s integer cell bounds, each cell's mean)."""
     m = np.zeros((out_size, in_size), dtype=np.float64)
+    if mode == "area":
+        for i in range(out_size):
+            start = (i * in_size) // out_size
+            end = -((-(i + 1) * in_size) // out_size)  # ceil
+            m[i, start:end] = 1.0 / (end - start)
+        return m.astype(np.float32)
+    if mode != "bilinear":
+        raise NotImplementedError(mode)
     src = (np.arange(out_size) + 0.5) * in_size / out_size - 0.5
     src = np.maximum(src, 0.0)
     x0 = np.floor(src).astype(np.int64)
@@ -79,6 +91,19 @@ def resize_bilinear(img: torch.Tensor, out_hw, align_corners: bool = False
         return img
     return F.interpolate(img, size=(oh, ow), mode="bilinear",
                          align_corners=align_corners)
+
+
+def resize_area(img: torch.Tensor, out_hw) -> torch.Tensor:
+    """Area resize of an NCHW image to ``out_hw``, as torch's
+    ``mode="area"`` cells it, with the float32 weights of
+    ``_resize_matrix`` in the image's dtype."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    h, w = img.shape[-2:]
+    if (oh, ow) == (h, w):
+        return img
+    mh, mw = (torch.from_numpy(_resize_matrix(i, o, "area")).to(img)
+              for i, o in ((h, oh), (w, ow)))
+    return torch.matmul(torch.matmul(mh, img), mw.t())
 
 
 def resize_flow(flow: torch.Tensor, new_shape, align_corners: bool = False

@@ -36,6 +36,16 @@ def mask_invalid(coords: torch.Tensor) -> torch.Tensor:
     return valid.to(coords.dtype)
 
 
+def border_mask(flow: torch.Tensor) -> torch.Tensor:
+    """1.0 where the flow's endpoint lands strictly inside the image (no
+    endpoint on the border), else 0.0. ``(B,1,H,W)``."""
+    h, w = flow.shape[-2], flow.shape[-1]
+    coords = flow_to_warp(flow)
+    x, y = coords[:, 0:1], coords[:, 1:2]
+    valid = (x > 0.0) & (x < w - 1.0) & (y > 0.0) & (y < h - 1.0)
+    return valid.to(flow.dtype)
+
+
 def resample(source: torch.Tensor, coords: torch.Tensor,
              padding: str = "zeros") -> torch.Tensor:
     """Bilinear sample of ``source`` (B,C,H,W) at pixel ``coords`` (B,2,Hq,Wq).

@@ -1,17 +1,30 @@
 """UFlow trainer (port of ``arflow_tpu/training/uflow_trainer.py``): the
 model predicts on the photometrically augmented ``img{1,2}_ph`` (the plain
 images where a batch has none), the loss compares against the originals.
+It trains the ``uflow`` model with ``UFlowLoss`` and the PWC-Lite family
+with the ``unflow`` and ``fullres`` losses.
+
+The ``elbo`` loss (``ElboLoss``) has no trainer, in the JAX package
+either, and this trainer and the ELBO trainer refuse it when they are
+built (``ELBO_HAS_NO_TRAINER``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from arflow_tpu_torch.losses import ElboLoss
 from arflow_tpu_torch.training.trainer import BaseTrainer, Timer, not_ported
 from arflow_tpu_torch.utils.meters import AverageMeter
 from arflow_tpu_torch.utils.metrics import evaluate_flow
 
 METRIC_KEYS = ("total", "l_ph", "l_sm", "flow_mean")
+ELBO_HAS_NO_TRAINER = (
+    "loss type 'elbo' has no trainer, in the JAX package either: its uflow "
+    "trainer calls the loss without the noise that it needs "
+    "(arflow_tpu/losses/elbo.py:38-40), and its uflow_elbo trainer reads an "
+    "'l_oof' term that the loss does not return "
+    "(arflow_tpu/training/uflow_elbo_trainer.py:93-104)")
 
 
 def device_photometric_cfg(full_cfg):
@@ -29,6 +42,8 @@ class UFlowTrainer(BaseTrainer):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
+        if isinstance(self.loss_func, ElboLoss):
+            raise ValueError(ELBO_HAS_NO_TRAINER)
         if device_photometric_cfg(self.full_cfg) is not None:
             raise not_ported("device-side photometric augmentation",
                              "queue 1, 'device-side augmentation'")
@@ -74,7 +89,8 @@ class UFlowTrainer(BaseTrainer):
 
     @torch.no_grad()
     def _validate_with_gt(self):
-        """Mean EPE of ``flows_fw[0]`` on each validation loader; with
+        """Mean EPE of ``flows_fw[0]``'s flow channels on each validation
+        loader; with
         ``valid_masks`` (KITTI's 4-channel ground truth) also E_noc, E_occ
         and F1_all."""
         loaders = self.valid_loader
@@ -90,7 +106,7 @@ class UFlowTrainer(BaseTrainer):
             error_meters = AverageMeter(i=len(error_names))
             for i_step, data in enumerate(loader):
                 img1, img2 = (self._to_device(data[k]) for k in ("img1", "img2"))
-                pred = self.model(img1, img2, with_bk=False)["flows_fw"][0]
+                pred = self.model(img1, img2, with_bk=False)["flows_fw"][0][..., 0:2]
                 es = evaluate_flow(data["target"]["flow"], pred)
                 error_meters.update(es, img1.shape[0])
                 if i_step % self.cfg.print_freq == 0 or i_step == len(loader) - 1:

@@ -47,7 +47,16 @@ with ``align_corners: false`` and ``warp_pad: border``, a bf16 forward;
 pwclite_serving: the 3-frame window of ``StreamingFlowEngine`` over 12 b1
 frames against the monolithic 3-frame forward, flows/s, and a 5-frame
 forward against its windows; and in phase export the b8 ``pwclite``
-artifact and the 3-frame streaming artifact). It checks the outputs, and
+artifact and the 3-frame streaming artifact); and the PWC-Lite family's
+training (phase pwclite_train_kernels: both kernels at every level shape
+of the pwclite and pwclite_uflow train steps at 256x448 b8;
+pwclite_train: one step each of ``pwclite`` with the ``unflow`` loss,
+``pwclite_uflow`` with ``fullres`` and ``pwclite_prob`` with ``elbo``
+under injected noise against the plain cost volume and float64, 10 steps
+of the first two through ``UFlowTrainer`` with the reference's AdamW,
+timed and profiled, and ``train.remat``'s step; pwclite_cli:
+``train_main`` with that configuration, validation EPE, a resume and an
+overfit check). It checks the outputs, and
 times the kernels, the forwards, the streams, the train steps and the
 entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
@@ -508,7 +517,7 @@ def time_grad(shapes, inputs, smi, cell) -> list:
     """``kernel_time`` rows of the backward kernel at a cell's level
     shapes: graph-timed and eager kernel, plain version, bound."""
     rows = []
-    for level, shape in zip((1, 2, 3, 4), shapes):
+    for level, shape in enumerate(shapes, 1):
         g, f1, f2 = inputs[shape]
         ms = graph_ms(lambda: cost_volume_grad_kernel(g, f1, f2, MD))
         eager_ms = cuda_ms(lambda: cost_volume_grad_kernel(g, f1, f2, MD),
@@ -1831,28 +1840,33 @@ def elbo_step_check(key, name, cfg, model, loss, x, noise):
          "shape": [EB, EH, EW]})
 
 
-def step_check(forward_loss, model, x, noise, row, train=False):
+def step_check(forward_loss, model, x, noise, row, train=False,
+               swap=plain_prob_cost_volume, launches=4, deterministic=False):
     """One step's loss and parameter gradients with the kernels against the
     plain-cost-volume model and a float64 one, under the same noise, with
-    the train phase's bounds, and 4 + 4 launches. ``forward_loss(net,
-    inputs, draws, train)`` runs the model and the loss. With ``train``
-    the model runs in training mode with level dropout off: each run starts
-    from the same BatchNorm running statistics, and the kernel model's
-    updated ones must be within ``BN_STATS_RTOL`` of the plain model's.
-    Emits ``row`` with the results; returns the failure's message, or
-    None."""
+    the train phase's bounds, and ``launches`` + ``launches`` kernel
+    launches. ``forward_loss(net, inputs, draws, train)`` runs the model
+    and the loss; ``swap()`` puts the plain cost volume into the model.
+    With ``train`` the model runs in training mode with level dropout
+    off: each run starts from the same BatchNorm running statistics, and
+    the kernel model's updated ones must be within ``BN_STATS_RTOL`` of
+    the plain model's. With ``deterministic`` the
+    runs take torch's deterministic algorithms where it has them (the
+    range map's ``index_add``, whose atomic order would otherwise move
+    pixels across a thresholded mask between the runs). Emits ``row``
+    with the results; returns the failure's message, or None."""
     key = row.get("setup", row["phase"])
-    dropout, model.level_dropout = model.level_dropout, 0.0
+    dropout = getattr(model, "level_dropout", None)
+    if dropout is not None:
+        model.level_dropout = 0.0
     buffers0 = {n: b.clone() for n, b in model.named_buffers()}
 
-    def step_grads(net, inputs, draws, plain):
+    def step_grads(net, inputs, draws, plain: bool):
         with torch.no_grad():
             for n, b in net.named_buffers():
                 b.copy_(buffers0[n])
         net.zero_grad(set_to_none=True)
-        swap = (mock.patch.object(uflow_prob_module, "compute_cost_volume", plain)
-                if plain else contextlib.nullcontext())
-        with swap:
+        with swap() if plain else contextlib.nullcontext():
             out = forward_loss(net, inputs, draws, train)
             out["total"].backward()
         torch.cuda.synchronize()
@@ -1863,20 +1877,23 @@ def step_check(forward_loss, model, x, noise, row, train=False):
         return float(out["total"].detach()), grads, stats
 
     torch.backends.cudnn.deterministic = True
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
     reset_launch_counts()
-    total, grads, stats = step_grads(model, x, noise, None)
+    total, grads, stats = step_grads(model, x, noise, False)
     step_launches = {k.name: k.launches for k in KERNELS}
-    total_again, grads_again, _ = step_grads(model, x, noise, None)
-    total_plain, grads_plain, stats_plain = step_grads(
-        model, x, noise, compute_cost_volume_reference)
+    total_again, grads_again, _ = step_grads(model, x, noise, False)
+    total_plain, grads_plain, stats_plain = step_grads(model, x, noise, True)
     as64 = lambda d: {k: v.double() if v.is_floating_point() else v  # noqa: E731
                       for k, v in d.items()}
     total64, grads64, _ = step_grads(copy.deepcopy(model).double(), as64(x),
-                                     as64(noise), compute_cost_volume_reference)
+                                     as64(noise), True)
+    torch.use_deterministic_algorithms(False)
     with torch.no_grad():
         for n, b in model.named_buffers():
             b.copy_(buffers0[n])
-    model.level_dropout = dropout
+    if dropout is not None:
+        model.level_dropout = dropout
     if {k.name: k.launches for k in KERNELS} != {
             n: 2 * v for n, v in step_launches.items()}:
         raise AssertionError(f"({key}) the plain runs launched a kernel")
@@ -1908,8 +1925,9 @@ def step_check(forward_loss, model, x, noise, row, train=False):
                     "bn_stats_rel_l2_vs_plain": stats_err,
                     "bn_stats_rtol": BN_STATS_RTOL})
     failure = None
-    if step_launches != {"cost_volume": 4, "cost_volume_bwd": 4}:
-        failure = f"({key}) a step launched {step_launches}, not 4 + 4"
+    if step_launches != {"cost_volume": launches, "cost_volume_bwd": launches}:
+        failure = (f"({key}) a step launched {step_launches}, not {launches} "
+                   f"+ {launches}")
     elif not (np.isfinite(total) and loss_err <= TRAIN_LOSS_RTOL
               and grad_err <= TRAIN_GRAD_RTOL and not over):
         failure = (f"({key}) step kernels vs plain: loss {loss_err}, "
@@ -2275,7 +2293,7 @@ def mixture_cli_config(root, save_root, epochs, resume=None):
 
 
 def cli_runs(tag, make_cfg, trainer_cls, tmp, dev, smi, batch, launches_want,
-             valid_names):
+             valid_names, shape=(MH, MW)):
     """``train_main`` of ``make_cfg(save_root, epochs, resume)``: run A, 2
     epochs of 3 steps with validation and checkpoints (``{tag}_cli_train``);
     then ``resume_runs``. Returns run A's launches."""
@@ -2297,7 +2315,7 @@ def cli_runs(tag, make_cfg, trainer_cls, tmp, dev, smi, batch, launches_want,
     valid = {name: events_of(dir_a, f"Valid_{name}_0") for name in valid_names}
     laps = [st["data_s"] + st["batch_s"] for st in probe.steps]
     want = launches_want(n_steps)
-    emit({"phase": f"{tag}_cli_train", "run": "A", "shape": [batch, MH, MW],
+    emit({"phase": f"{tag}_cli_train", "run": "A", "shape": [batch, *shape],
           "epochs": run_a.i_epoch, "steps": run_a.i_iter, "launches": launches,
           "launches_want": want, "losses": rows[:, 0].tolist(), "valid": valid,
           "best_error": run_a.best_error, "files": files,
@@ -3358,6 +3376,37 @@ def switch_trainer(cfg, model, batches, **train):
     return trainer
 
 
+def remat_runs(cfg, base, batches, args, deterministic=False):
+    """One step of ``switch_trainer`` without and with ``train.remat``,
+    each from a copy of ``base``, with cuDNN's deterministic algorithms
+    (and torch's, with ``deterministic``): {remat: {"trainer", "peak_gb",
+    "launches", "grads", "generator"}}, and the remat step's gradients'
+    relative L2 distance from the plain step's (None where different
+    parameters have gradients)."""
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    for remat in (False, True):
+        t = switch_trainer(cfg, copy.deepcopy(base), batches, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t.train_step(*args)
+        torch.cuda.synchronize()
+        runs[remat] = {"trainer": t,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": {k.name: k.launches for k in KERNELS},
+                       "grads": {n: p.grad.clone() for n, p in t.model.named_parameters()
+                                 if p.grad is not None},
+                       "generator": t.generator.get_state()}
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    g0, g1 = runs[False]["grads"], runs[True]["grads"]
+    grad_rel = rel_l2(flat(g1), flat(g0).double()) if sorted(g0) == sorted(g1) else None
+    return runs, grad_rel
+
+
 def phase_train_switches(cfg, dev, smi):
     """The trainer switches on the card, the uflow step at 256x448 b8:
     ``nan_revert`` (a NaN batch leaves the weights, the Adam state and the
@@ -3406,25 +3455,7 @@ def phase_train_switches(cfg, dev, smi):
     # remat: two trainers from the same weights and seed, one step each.
     base = get_model(scfg.model, device=dev, seed=SEED)
     base.level_dropout = SWITCH_DROPOUT
-    runs = {}
-    torch.backends.cudnn.deterministic = True
-    for remat in (False, True):
-        t = switch_trainer(scfg, copy.deepcopy(base), batches, remat=remat)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        t.train_step(*args[0])
-        torch.cuda.synchronize()
-        runs[remat] = {"trainer": t,
-                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                       "launches": {k.name: k.launches for k in KERNELS},
-                       "grads": {n: p.grad.clone() for n, p in t.model.named_parameters()
-                                 if p.grad is not None},
-                       "generator": t.generator.get_state()}
-    torch.backends.cudnn.deterministic = False
-    g0, g1 = runs[False]["grads"], runs[True]["grads"]
-    grad_rel = rel_l2(flat(g1), flat(g0).double()) if sorted(g0) == sorted(g1) else None
+    runs, grad_rel = remat_runs(scfg, base, batches, args[0])
     same_gen = torch.equal(runs[False]["generator"], runs[True]["generator"])
     lr = runs[False]["trainer"].optimizer.schedule(0)
     step_gap = max(float((p - q).detach().abs().max()) for p, q in zip(
@@ -3736,6 +3767,270 @@ def phase_pwclite_serving(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The PWC-Lite family's training (phases pwclite_train_kernels,
+# pwclite_train, pwclite_cli): the JAX package's own PWC-Lite train step
+# (benchmarks/bench_bidir_ab.py, PWCLite 2-frame and the unflow loss at
+# 256x448 b8) with the reference's AdamW at ARFlow's settings (lr 2e-4,
+# betas 0.9 / 0.999, weight decay 1e-6 on conv weights, none on biases).
+
+PWCLITE_TRAIN_MODEL = {"type": "pwclite", "n_frames": 2, "upsample": True,
+                       "reduce_dense": True}
+PWCLITE_UNFLOW = {"type": "unflow", "occ_from_back": True, "w_l1": 0.15,
+                  "w_ssim": 0.85, "w_ternary": 0.0, "w_smooth": 75.0,
+                  "smooth_2nd": True, "alpha": 10,
+                  "w_scales": [1.0, 1.0, 1.0, 1.0, 0.0, 0.0],
+                  "w_sm_scales": [1.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+                  "warp_pad": "border", "with_bk": True}
+PWCLITE_FULLRES = {"type": "fullres", "w_l1": 0.15, "w_ssim": 0.85,
+                   "w_ternary": 0.0, "ternary_distance": 1, "w_smooth": 50.0,
+                   "alpha": 10, "occ_type": "wang", "wang_thr": 0.2,
+                   "warp_pad": "border", "align_corners": True,
+                   "smooth_2nd": False, "with_bk": True}
+PWCLITE_ELBO = dict(PWCLITE_UNFLOW, type="elbo", w_entropy=0.01,
+                    w_en_scales=[1.0, 1.0, 1.0, 1.0, 0.0, 0.0])
+PWCLITE_ADAMW = {"optim": "adamw", "lr": 2e-4, "momentum": 0.9,
+                 "beta": 0.999, "weight_decay": 1e-6, "bias_decay": 0.0}
+# (key, model section, loss section, cost-volume launches per step, both
+# directions); the ELBO setup has a step check and no trainer.
+PWCLITE_TRAIN_SETUPS = (
+    ("pwclite_unflow", PWCLITE_TRAIN_MODEL, PWCLITE_UNFLOW, 10),
+    ("pwclite_uflow_fullres", PWCLITE_UFLOW_CFG, PWCLITE_FULLRES, 8),
+    ("pwclite_prob_elbo", {"type": "pwclite_prob", "n_frames": 2},
+     PWCLITE_ELBO, 10),
+)
+PWCLITE_TRAIN_STEPS = 10
+PWCLITE_OVERFIT_STEPS = 20
+
+
+def pwclite_train_config(model, loss, root=None, save_root=None, epochs=1,
+                         resume=None):
+    """``configs/chairs_uflow.json`` with the PWC-Lite model, loss and AdamW
+    (``PWCLITE_ADAMW``) in place of its own; with ``root``, both data roots
+    there, the train entry cropped to 256x448 as chairs_uflow_elbo.json's
+    is, and ``epochs`` epochs of 3 steps that each validate and save."""
+    cfg = load_config(CONFIG)
+    cfg.model, cfg.loss = Config(model), Config(loss)
+    cfg.train.update(PWCLITE_ADAMW)
+    if root is not None:
+        for entry in cfg.data:
+            entry.root_chairs = root
+            if entry.type == "train":
+                entry.geometric_aug.update(crop=True, crop_size=[TH, TW])
+        cfg.save_root = save_root
+        cfg.train.update(epoch_num=epochs, epoch_size=ELBO_CLI_EPOCH_SIZE,
+                         valid_freq=1, save_iter=0)
+    if resume is not None:
+        cfg.train.resume = resume
+    return cfg
+
+
+def pwclite_noise(model, x, gen):
+    """One draw of the elbo loss's ``noise``: standard normals at each
+    output level's size, both directions, NHWC."""
+    with torch.no_grad():
+        res = model(x["img1"][:1], x["img2"][:1])
+    return {f"eps_{d}_{i}": torch.randn((TB, *f.shape[1:3], 2), generator=gen,
+                                        device=f.device)
+            for i, f in enumerate(res["flows_fw"]) for d in ("fw", "bw")}
+
+
+def phase_pwclite_train_kernels(dev, smi):
+    """Both kernels against their plain versions, then timed (CUDA graphs
+    of 20 launches) at every level shape of the pwclite (C 192 ... 32 on
+    4x7 ... 64x112) and pwclite_uflow (C 32 on 8x14 ... 64x112) train steps
+    at 256x448 b8; and how many outputs the forward kernel and the plain
+    version round apart at each shape."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    levels = {"pwclite_train_b8": pwclite_level_shapes(TB, TH, TW),
+              "pwclite_uflow_train_b8": pwclite_uflow_level_shapes(TB, TH, TW)}
+    checks = [(shape, MD, 0) for shapes in levels.values() for shape in shapes]
+    fwd_err = check_forward(checks, gen, dev)
+    for shape, _, _ in checks:
+        f1 = torch.randn(shape, generator=gen, device=dev)
+        f2 = torch.randn(shape, generator=gen, device=dev)
+        unequal = int((cost_volume_kernel(f1, f2, MD)
+                       != compute_cost_volume_reference(f1, f2, MD)).sum())
+        emit({"phase": "kernel_unequal", "kernel": "cost_volume",
+              "shape": shape, "unequal": unequal})
+    fwd_rows = time_forward(levels, gen, dev, smi)
+    bwd_err, inputs = check_grad(checks, gen, dev)
+    bwd_rows = {key: time_grad(shapes, inputs, smi, key)
+                for key, shapes in levels.items()}
+    return fwd_err, fwd_rows, bwd_err, bwd_rows
+
+
+def phase_pwclite_train(dev, smi):
+    """Each setup at 256x448 b8: one step with the kernels against the
+    plain cost volume and float64 (``step_check`` with deterministic
+    algorithms: the occlusion masks threshold a splat); the elbo setup
+    under injected noise, and its refusal by the trainer. For pwclite and
+    pwclite_uflow: PWCLITE_TRAIN_STEPS steps through
+    ``UFlowTrainer.train()`` with AdamW and the launches counted, then
+    ``step_time`` (CUDA events, profile, peak memory); for pwclite,
+    ``train.remat``'s step against the plain one (gradients, peak memory,
+    launches). A failed step check fails the phase once every setup has
+    run."""
+    log = logging.getLogger("chip_smoke")
+    launches, failures = {}, []
+    for key, model_cfg, loss_cfg, per_step in PWCLITE_TRAIN_SETUPS:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+        cfg = pwclite_train_config(model_cfg, loss_cfg)
+        model = get_model(cfg.model, device=dev, seed=SEED)
+        loss = get_loss(cfg.loss)
+        batches = []
+        for dy, dx in ((1, 2), (2, -3), (-3, 1)):
+            a, b = shifted_pair(TB, TH, TW, dy, dx, gen, dev)
+            batches.append({"img1": a, "img2": b,
+                            "img1_ph": (a * 1.1).clamp(0.0, 1.0),
+                            "img2_ph": (b * 1.1).clamp(0.0, 1.0)})
+        x = batches[0]
+        elbo = loss_cfg["type"] == "elbo"
+        noise = pwclite_noise(model, x, gen) if elbo else {}
+
+        def forward_loss(net, inputs, draws, train):
+            res = net(inputs["img1"], inputs["img2"], with_bk=True, train=train)
+            extra = {"noise": draws} if draws else {}
+            return loss(res, inputs["img1"], inputs["img2"], **extra)
+
+        failure = step_check(
+            forward_loss, model, x, noise,
+            {"phase": "pwclite_train_step_check", "setup": key,
+             "model": model_cfg, "loss_type": loss_cfg["type"],
+             "shape": [TB, TH, TW]},
+            swap=plain_pwclite_cost_volume, launches=per_step,
+            deterministic=True)
+        if failure:
+            failures.append(failure)
+        train_cfg = cfg.train.copy()
+        train_cfg.update(epoch_num=1, seed=SEED)
+        if elbo:
+            try:
+                UFlowTrainer([], None, model, loss, log, "", train_cfg,
+                             model_cfg=cfg.model, full_cfg=cfg)
+            except ValueError as e:
+                emit({"phase": "pwclite_elbo_refused", "message": str(e)})
+            else:
+                raise AssertionError("UFlowTrainer took the elbo loss")
+            del model
+            continue
+
+        trainer = RecordingTrainer(
+            [batches[i % len(batches)] for i in range(PWCLITE_TRAIN_STEPS)],
+            None, model, loss, log, os.path.join(REPO, "outputs", "chip_smoke"),
+            train_cfg, model_cfg=cfg.model, full_cfg=cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[key] = {k.name: k.launches for k in KERNELS}
+        rows = torch.stack(trainer.rows).cpu()
+        emit({"phase": "pwclite_train", "setup": key, "model": model_cfg,
+              "loss": loss_cfg, "optim": PWCLITE_ADAMW, "shape": [TB, TH, TW],
+              "steps": trainer.i_iter, "seconds_incl_first_steps": seconds,
+              "launches": launches[key],
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **{k: rows[:, i].tolist() for i, k in enumerate(
+                  ("losses", "l_ph", "l_sm", "flow_mean"))}})
+        if trainer.i_iter != PWCLITE_TRAIN_STEPS or len(rows) != PWCLITE_TRAIN_STEPS:
+            raise AssertionError(f"({key}) {trainer.i_iter} steps, not "
+                                 f"{PWCLITE_TRAIN_STEPS}")
+        if not bool(torch.isfinite(rows).all()):
+            raise AssertionError(f"({key}) non-finite training metrics")
+        want = per_step * PWCLITE_TRAIN_STEPS
+        if launches[key] != {"cost_volume": want, "cost_volume_bwd": want}:
+            raise AssertionError(f"({key}) {PWCLITE_TRAIN_STEPS} steps launched "
+                                 f"{launches[key]}, not {want} + {want}")
+        flops = conv_flops(model, x["img1_ph"], x["img2_ph"], with_bk=True)
+        step_time("pwclite_train",
+                  lambda: trainer.train_step(x["img1"], x["img2"], x["img1_ph"],
+                                             x["img2_ph"]),
+                  TB, [TB, TH, TW], smi,
+                  {"setup": key, "conv_gflop_forward": flops / 1e9,
+                   "conv_bound_ms_f32_step": 3e3 * flops / PEAK_F32_FLOP_PER_S},
+                  ranges={"loss": (type(loss), "__call__")}, census=None)
+        if key == "pwclite_unflow":
+            launches["remat"] = pwclite_remat(cfg, model, batches, smi)
+        del trainer, model
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def pwclite_remat(cfg, model, batches, smi):
+    """One pwclite step with and without ``train.remat`` from the same
+    weights (``remat_runs``, deterministic): gradients within
+    REMAT_GRAD_RTOL, the peak memory of each, and 10 + 10 forward launches
+    (each decode level recomputed) with 10 backward ones. Returns the
+    remat step's launches."""
+    args = [batches[0][k] for k in ("img1", "img2", "img1_ph", "img2_ph")]
+    runs, grad_rel = remat_runs(cfg, model, batches, args, deterministic=True)
+    emit({"phase": "pwclite_remat", "shape": [TB, TH, TW],
+          "grad_rel_l2_vs_plain": grad_rel, "grad_rtol": REMAT_GRAD_RTOL,
+          "peak_memory_gb_plain": runs[False]["peak_gb"],
+          "peak_memory_gb_remat": runs[True]["peak_gb"],
+          "launches_plain": runs[False]["launches"],
+          "launches_remat": runs[True]["launches"], "card": smi})
+    if grad_rel is None or not grad_rel <= REMAT_GRAD_RTOL:
+        raise AssertionError(f"pwclite remat: gradients {grad_rel}")
+    if runs[True]["launches"] != {"cost_volume": 20, "cost_volume_bwd": 10}:
+        raise AssertionError(f"pwclite remat step launched "
+                             f"{runs[True]['launches']}, not 20 + 10")
+    return runs[True]["launches"]
+
+
+def phase_pwclite_cli(dev, smi):
+    """``train_main`` with the PWC-Lite training config on the cli phase's
+    FlyingChairs-format directory (written anew, 384x512 pairs cropped to
+    256x448, b8): 2 epochs of 3 steps with validation EPE and both
+    checkpoints, a resume restoring weights, the AdamW moments and steps,
+    the schedule count and the counters bit for bit; then
+    PWCLITE_OVERFIT_STEPS steps on one fixed unaugmented batch must lower
+    its loss. Under ``PerSampleDraws``, as the cli phase."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pwclite_cli_")
+    log = logging.getLogger("chip_smoke")
+    try:
+        with PerSampleDraws(SEED).active():
+            root = os.path.join(tmp, "chairs")
+            os.makedirs(root)
+            write_chairs_dir(root, dev)
+
+            def make_cfg(save_root, epochs, resume):
+                return pwclite_train_config(PWCLITE_TRAIN_MODEL, PWCLITE_UNFLOW,
+                                            root, save_root, epochs, resume)
+
+            launches = cli_runs(
+                "pwclite", make_cfg, UFlowTrainer, tmp, dev, smi, TB,
+                # one forward (5 launches) per validation pair, 2 pairs
+                lambda n: {"cost_volume": 10 * n + 10 * CLI_EPOCHS,
+                           "cost_volume_bwd": 10 * n},
+                ("EPE",), shape=(TH, TW))
+        img1, img2, _ = stacked_pairs(root, "train", TB, dev)
+        cfg = make_cfg(os.path.join(tmp, "overfit"), 1, None)
+        model = get_model(cfg.model, device=dev, seed=SEED)
+        loss_func = get_loss(cfg.loss)
+        before = fixed_batch_loss(model, loss_func, img1, img2)
+        cfg.train.update(epoch_num=1, epoch_size=PWCLITE_OVERFIT_STEPS)
+        trainer = UFlowTrainer([{"img1": img1, "img2": img2}] * PWCLITE_OVERFIT_STEPS,
+                               None, model, loss_func, log, cfg.save_root,
+                               cfg.train, model_cfg=cfg.model, full_cfg=cfg)
+        trainer.train()
+        after = fixed_batch_loss(model, loss_func, img1, img2)
+        emit({"phase": "pwclite_cli_overfit", "batch": [TB, CH, CW],
+              "steps": trainer.i_iter, "loss_untrained": before,
+              "loss_after": after})
+        if trainer.i_iter != PWCLITE_OVERFIT_STEPS or not (
+                np.isfinite(after) and after < before):
+            raise AssertionError(f"{trainer.i_iter} steps on one batch: loss "
+                                 f"{before} -> {after}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3792,6 +4087,15 @@ def main() -> int:
         "serving": timed("pwclite_serving", phase_pwclite_serving, dev, smi),
         "export": {k: v for k, v in export_launches.items()
                    if k.startswith("pwclite")}}
+    lt_err, lt_rows, lt_grad_err, lt_grad_rows = timed(
+        "pwclite_train_kernels", phase_pwclite_train_kernels, dev, smi)
+    lite_train = timed("pwclite_train", phase_pwclite_train, dev, smi)
+    lite_cli = timed("pwclite_cli", phase_pwclite_cli, dev, smi)
+    lite_launches["train"] = {k: v["cost_volume"] for k, v in lite_train.items()}
+    lite_launches["cli"] = lite_cli["cost_volume"]
+    lite_bwd_launches = {"train": {k: v["cost_volume_bwd"]
+                                   for k, v in lite_train.items()},
+                         "cli": lite_cli["cost_volume_bwd"]}
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [{
         "name": COST_VOLUME.name,
@@ -3799,7 +4103,8 @@ def main() -> int:
         "source": COST_VOLUME.source,
         "replaces": COST_VOLUME.replaces,
         "launches": launches["cost_volume"],
-        "max_abs_err": max(max_err, prob_err, elbo_err, mse_err, lite_err),
+        "max_abs_err": max(max_err, prob_err, elbo_err, mse_err, lite_err,
+                           lt_err),
         # One 2-frame forward's worth at b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in per_level["b8"]),
         "plain_ms": sum(r["plain_ms"] for r in per_level["b8"]),
@@ -3859,13 +4164,20 @@ def main() -> int:
         # pwclite_uflow variants and the bf16 pwclite; the 3-frame stream
         # over 12 frames (10 per window) and one 5-frame forward with
         # with_bk (30); the b8 artifact (5) and the 3-frame streaming
-        # artifact (10 per window).
+        # artifact (10 per window); PWCLITE_TRAIN_STEPS steps of pwclite
+        # (10 per step) and pwclite_uflow (8), the remat step (20), and
+        # train_main's 6 steps and 2 validations (phases pwclite_train,
+        # pwclite_cli).
         "launches_pwclite": lite_launches,
         # One forward's worth at each PWC-Lite level set: 384x640 b8 and b1
         # and 448x1024 b1 (5 levels, C 192 .. 32), the PWCLiteUflow's at
         # 384x640 b8 (4 levels, C 32).
         **{f"{what}_{key}": sum(r[what] for r in lite_levels[key])
            for key in lite_levels for what in ("ms", "plain_ms", "bound_ms")},
+        # One direction's forward at the pwclite and pwclite_uflow training
+        # levels, 256x448 b8.
+        **{f"{what}_{key}": sum(r[what] for r in lt_rows[key])
+           for key in lt_rows for what in ("ms", "plain_ms", "bound_ms")},
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",
@@ -3873,7 +4185,7 @@ def main() -> int:
         "replaces": COST_VOLUME_BWD.replaces,
         # TRAIN_STEPS train steps: 8 per step (4 levels x 2 directions).
         "launches": train_launches["cost_volume_bwd"],
-        "max_abs_err": max(grad_err, elbo_grad_err, mse_grad_err),
+        "max_abs_err": max(grad_err, elbo_grad_err, mse_grad_err, lt_grad_err),
         # One direction's worth at 256x448 b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in grad_rows),
         "plain_ms": sum(r["plain_ms"] for r in grad_rows),
@@ -3892,6 +4204,13 @@ def main() -> int:
         "launches_bf16": {k: bf16_launches[k]["cost_volume_bwd"]
                           for k in ("train_step", "elbo_step")},
         "launches_remat": remat_launches["cost_volume_bwd"],
+        # The PWC-Lite family's training: PWCLITE_TRAIN_STEPS steps of
+        # pwclite (10 per step) and pwclite_uflow (8), the remat step (10),
+        # train_main's 6 steps; one direction's backward at their training
+        # levels, 256x448 b8.
+        "launches_pwclite": lite_bwd_launches,
+        **{f"{what}_{key}": sum(r[what] for r in lt_grad_rows[key])
+           for key in lt_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
     }]})
     # The card's name and power limit as nvidia-smi prints them, on a line
     # of their own before the result line.

@@ -257,6 +257,12 @@ def test_cuda_grad_kernel_matches_plain(shape, md, offset):
     """The backward kernel through the op, at the UFlow levels of
     384x640, 256x448 and the MSE step's 384x512 b16, the ragged cases above
     and the tile edges, both gradients and each alone."""
+    check_grad_kernel(shape, md, offset)
+
+
+def check_grad_kernel(shape, md, offset):
+    """The backward kernel through the op against its plain version, both
+    gradients and each alone; one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -370,3 +376,23 @@ def test_cuda_kernel_at_pwclite_level_shapes(shape):
     assert COST_VOLUME.launches == before + 1
     torch.testing.assert_close(out, compute_cost_volume_reference(f1, f2, 4),
                                rtol=0, atol=2e-6)
+
+
+# The PWC-Lite family's training levels at 256x448 b8: pwclite's (C 192 ...
+# 32 on 4x7 ... 64x112: the 4x7 map is narrower than one 16-pixel tile and
+# has odd W, and C = 192 spreads over 6 channel parts of the backward
+# kernel) and pwclite_uflow's (C 32 on 8x14 ... 32x56; its 64x112 level is
+# pwclite's).
+PWCLITE_TRAIN_LEVELS = (
+    [(8, c, 256 >> lv, 448 >> lv)
+     for lv, c in zip((6, 5, 4, 3, 2), (192, 128, 96, 64, 32))]
+    + [(8, 32, 256 >> lv, 448 >> lv) for lv in (5, 4, 3)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PWCLITE_TRAIN_LEVELS)
+def test_cuda_kernels_at_pwclite_train_level_shapes(shape):
+    """Both kernels through the op against their plain versions at the
+    PWC-Lite family's training level shapes; one launch each."""
+    test_cuda_kernel_at_pwclite_level_shapes(shape)
+    check_grad_kernel(shape, 4, 0)

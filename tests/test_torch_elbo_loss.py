@@ -9,7 +9,8 @@ without ``fix_isotropic_broadcast``, sampled), the occlusion types
 ``sample``, ``mean`` and ``none``, ``with_bk`` on and off, the
 out-of-frame and occlusion penalties, the penalties (``charbonnier``,
 ``abs_robust_loss``, ``gmm``), the banded products,
-``census_loss_no_penalty`` with two groups and the refusals. The other
+``census_loss_no_penalty`` with two groups, the ssim data term and the
+refusals. The other
 posteriors are in ``test_torch_elbo_loss_posteriors.py``.
 
 The JAX side runs with its Taylor-warp gate pinned off
@@ -176,15 +177,16 @@ def test_refusals_as_the_jax_loss(overrides, match, monkeypatch):
         port_loss(cfg, *args)
 
 
-def test_refusals_of_what_is_not_ported():
-    """The Taylor warp and ssim raise and name their roadmap items; a
-    config that names its loss with ``name`` (chairs_uflow_elbo.json)
-    builds."""
+def test_refusals_of_what_is_not_ported(monkeypatch):
+    """The Taylor warp raises and names its roadmap item; the ssim data
+    term, ported since, computes as the JAX one does (beside census, each
+    with its penalty); a config that names its loss with ``name``
+    (chairs_uflow_elbo.json) builds."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*Taylor warp"):
         get_loss(Config(dict(BASE, taylor_warp=True)))
-    cfg = dict(BASE, data_loss=["ssim"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*PWC-Lite"):
-        port_loss(cfg, *inputs(cfg, seed=0))
+    monkeypatch.setenv("ARFLOW_TAYLOR_WARP", "0")
+    check_case(dict(BASE, data_loss=["census", "ssim"], data_weight=[1.0, 0.5],
+                    data_penalty=["abs_robust_loss", "charbonnier"]), seed=5)
     named = {k: v for k, v in BASE.items() if k != "type"}
     assert isinstance(get_loss(Config(dict(named, name="uflow_elbo"))),
                       UFlowElboLoss)

@@ -118,7 +118,3 @@ def test_lr_schedule_gate():
     assert lrs == [1e-3, 1e-3, 1e-3 * 0.5, 1e-3 * 0.5, 1e-3 * 0.25,
                    1e-3 * 0.125]
 
-
-def test_adamw_raises_and_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_optimizer(Config(_cfg(optim="adamw")), Net(), STEPS_PER_EPOCH)

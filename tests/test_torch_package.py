@@ -143,7 +143,8 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     being skipped: resuming from the JAX package's msgpack checkpoint among
     them. Its orbax checkpoints stay with it, and saving one raises. The
     switches ported since (``remat``, ``nan_revert``, ``stage1``) train
-    and take effect (``test_torch_train_switches.py`` holds them)."""
+    and take effect (``test_torch_train_switches.py`` holds them), and so
+    does ``optim: adamw`` (``test_torch_adamw.py``)."""
     train = dict(TRAIN)
     full = {"model": CFG, "loss": LOSS}
     kwargs, valid = {}, None
@@ -173,7 +174,7 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
         trainer_name = "uflow_elbo"
         full["data"] = [{"type": "train",
                          "photometric_aug": {"hue": 0.5, "device": True}}]
-    ported = case in ("remat", "nan_revert", "stage1")
+    ported = case in ("remat", "nan_revert", "stage1", "adamw")
     with (contextlib.nullcontext() if ported
           else pytest.raises(error, match=match)):
         if case == "loss_uflow_elbo":  # the opt-in Taylor warp

@@ -31,6 +31,9 @@ GATES_OFF = {"ARFLOW_WFOLD_PYR": "0", "ARFLOW_BIDIR_BATCH": "0"}
 _JAX_FWD = {}
 
 
+_JAX_RESIZE_MATRIX = jax_resize._resize_matrix
+
+
 @functools.lru_cache(maxsize=None)
 def resize_matrix_f64(in_size, out_size, mode, align_corners):
     """``arflow_tpu/ops/resize.py:_resize_matrix``'s bilinear weights kept
@@ -38,7 +41,11 @@ def resize_matrix_f64(in_size, out_size, mode, align_corners):
     ``align_corners=True`` (the PWC-Lite upsampling) is not exact: the
     float64 JAX flows then part from the float64 port's by about 1e-6 px,
     and every other difference would hide under that. With the weights in
-    float64 the two part by about 1e-14."""
+    float64 the two part by about 1e-14. The ``area`` weights stay the JAX
+    function's, rounded to float32, as the port's ``resize_area`` rounds
+    them."""
+    if mode == "area":
+        return _JAX_RESIZE_MATRIX(in_size, out_size, mode, align_corners)
     assert mode == "bilinear"
     m = np.zeros((out_size, in_size), dtype=np.float64)
     if align_corners:
