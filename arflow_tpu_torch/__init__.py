@@ -12,10 +12,19 @@ Entry points run on the CUDA device unless the caller passes
 Every Pallas kernel of ``arflow_tpu`` on the ported path has a hand-written
 CUDA counterpart under ``csrc/``, its backward included (built at first
 use, see ``ops/cuda/build.py``); on a CPU tensor the same entry points run
-the kernel's plain PyTorch version.
+the kernel's plain PyTorch version. The input path's host code (decode,
+resize, hue) has a C++ library beside its numpy version (``native/``,
+built with ``g++`` at first use).
 """
 
 __version__ = "0.1.0"
+
+from arflow_tpu_torch.utils.hostmem import configure_host_allocator
+
+# Keep large host buffers (decoded and augmented frames) on the reusable
+# heap free-list instead of per-allocation mmaps (utils/hostmem.py).
+# ARFLOW_HOST_ALLOC=0 opts out.
+configure_host_allocator()
 
 from arflow_tpu_torch.config import Config, load_config  # noqa: F401
 from arflow_tpu_torch.device import resolve_device  # noqa: F401

@@ -8,9 +8,11 @@ Output dict per item: 'img{i}' (H,W,3 float32 [0,1] geometric-augmented),
 'img{i}_ph' (photometric-augmented), 'img{i}_orgsize', 'img{i}_rpath',
 'target' {'flow': (H,W,2|4), 'mask', 'flow_bw'}.
 
-Images decode to float32 ``px / 255.0``. Binary PPM and PGM (FlyingChairs)
-decode in numpy; PNG and JPG (Sintel, KITTI, FlyingChairs2, Things3D) need
-PIL, imported at the call.
+Images decode to float32 in [0, 1] with the native decoder
+(``arflow_tpu_torch.native``, PNG, PPM and PGM, ``px * (1 / 255)``) where it
+is built. Without it, binary PPM and PGM (FlyingChairs) decode in numpy and
+PNG and JPG (Sintel, KITTI, FlyingChairs2, Things3D) through PIL, imported
+at the call, both ``px / 255.0``: the two paths part by at most an ulp.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
+from arflow_tpu_torch import native
 from arflow_tpu_torch.utils.flow_io import load_flow
 
 PNM_SUFFIXES = (".ppm", ".pgm", ".pnm")
@@ -72,8 +75,14 @@ def read_pnm(path) -> np.ndarray:
 
 
 def load_image(path) -> np.ndarray:
-    """(H, W, 3) float32 in [0, 1]: PPM/PGM in numpy, other formats
-    through PIL."""
+    """(H, W, 3) float32 in [0, 1]: the native decoder where it is built
+    and reads the format; else PPM/PGM in numpy, other formats through
+    PIL."""
+    if native.available() and native.supports(path):
+        try:
+            return native.load_image(str(path))
+        except OSError:  # a file the native decoder refuses
+            pass
     if str(path).lower().endswith(PNM_SUFFIXES):
         return read_pnm(path)
     try:
@@ -86,6 +95,22 @@ def load_image(path) -> np.ndarray:
     with Image.open(path) as im:
         arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
     return arr
+
+
+def load_image_stack(paths) -> np.ndarray:
+    """N same-sized frames decoded into one (N, H, W, 3) array: the native
+    decoder writes straight into the stacked buffer's slices (no per-frame
+    copy); otherwise the frames decode one by one and are stacked."""
+    if native.available() and all(native.supports(p) for p in paths):
+        try:
+            h, w, _ = native.image_shape(str(paths[0]))
+            out = np.empty((len(paths), h, w, 3), np.float32)
+            for i, p in enumerate(paths):
+                native.load_image(str(p), out=out[i])
+            return out
+        except OSError:  # a file the native decoder refuses
+            pass
+    return np.stack([load_image(p) for p in paths])
 
 
 class ImgSeqDataset(ABC):
@@ -102,7 +127,7 @@ class ImgSeqDataset(ABC):
         ...
 
     def _load_sample(self, s):
-        images = np.stack([load_image(self.root / p) for p in s["imgs"]])
+        images = load_image_stack([self.root / p for p in s["imgs"]])
         target = {}
         if "flow" in s:
             target["flow"] = load_flow(self.root / s["flow"]).astype(np.float32)

@@ -39,9 +39,9 @@ def get_dataset(all_cfg, seed: int = 0):
         )
         photometric_transform = (
             get_photometric_transforms(cfg.photometric_aug, rng)
-            # "device": true asks for the augmentation on the card, which
-            # the port's UFlowTrainer refuses (not ported yet); the dataset
-            # then emits no _ph copies.
+            # "device": true moves this augmentation into UFlowTrainer's
+            # step on the card (data/device_aug.py); the dataset then emits
+            # no _ph copies.
             if "photometric_aug" in cfg and not cfg.photometric_aug.get("device")
             else None
         )

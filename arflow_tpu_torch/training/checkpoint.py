@@ -1,7 +1,8 @@
 """Checkpoints of the port: ``.pth.tar`` files written with ``torch.save``.
 
 A checkpoint holds ``{"state_dict", "epoch", "i_iter", "best_error",
-"optimizer", "opt_count", "generator"}``, and ``"nan_skips"`` where
+"optimizer", "opt_count", "generator"}``, ``"aug_generator"`` where the
+photometric augmentation runs on the card, and ``"nan_skips"`` where
 ``train.nan_revert`` is on:
 
 - ``state_dict``: the model's, with the reference's keys, on the CPU, so
@@ -11,6 +12,8 @@ A checkpoint holds ``{"state_dict", "epoch", "i_iter", "best_error",
 - ``opt_count``: the steps the learning-rate schedule has counted;
 - ``generator``: the ``get_state()`` of the trainer's generator, which
   level dropout (and the ELBO loss's Monte-Carlo noise) draw from;
+- ``aug_generator``: the ``get_state()`` of the generator that
+  ``photometric_aug.device``'s parameters draw from;
 - the counters ``epoch``, ``i_iter``, ``best_error`` and ``nan_skips``
   (the steps ``nan_revert`` reverted; 0 where absent), for resume.
 

@@ -10,8 +10,10 @@ runs at that flush and names the iteration that went non-finite.
 Checkpoints are ``.pth.tar`` files (``training/checkpoint.py``): the
 model's ``state_dict``, the optimizer's state, the schedule's step count,
 the state of the generator that level dropout (and the ELBO loss's noise)
-draw from, and the epoch, iteration and best-error counters. ``train.resume`` restores all of them, so a resumed
-run continues an unbroken one bit for bit where the data is the same (the
+draw from, that of the generator the augmentation on the card draws from
+where a config asks for it, and the epoch, iteration and best-error
+counters. ``train.resume`` restores all of them, so a resumed run continues
+an unbroken one bit for bit where the data is the same (the host
 augmentation's draws are not in a checkpoint, in either package).
 
 The JAX trainer's switches:
@@ -32,9 +34,9 @@ The JAX trainer's switches:
   updates the loss's config, once; a resume past that epoch applies it too.
 
 The device mesh raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item. Scalar summaries go to the logger and to ``events.jsonl`` in
-``save_root`` (and TensorBoard where it imports), opened at the first
-scalar; image summaries are not written.
+item. Summaries go to ``events.jsonl`` in ``save_root`` (and TensorBoard
+where it imports), opened at the first one: scalars, also to the logger,
+and the validations' images, as PNG files under ``save_root/images``.
 """
 
 from __future__ import annotations
@@ -85,6 +87,8 @@ class BaseTrainer:
         self.i_iter = 0
         self.optimizer = None  # lazy, from the first batch
         self.generator = None
+        self.device_photometric = None  # (sample_params, apply) on the card
+        self.aug_generator = None
         self._resume_ckpt = None  # read by train(), applied at the first batch
         self._pending_metrics = []  # (i_iter, i_step, batch size, device row)
         self.nan_skips = 0  # steps reverted by nan_revert
@@ -112,19 +116,25 @@ class BaseTrainer:
         self.optimizer = create_optimizer(self.cfg, self.model, steps_per_epoch)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.cfg.get("seed", 0) + 7919)
+        if self.device_photometric is not None:
+            self.aug_generator = torch.Generator(device=self.device).manual_seed(
+                self.cfg.get("seed", 0) + 104729)
         if self._resume_ckpt is not None:
             self._restore_resume()
 
     def _restore_resume(self):
         """The weights, the optimizer's state, the schedule's step count
-        and the dropout generator's state of the checkpoint that ``train``
-        read at ``cfg.resume``, as ``save_model`` wrote them; then the
-        checkpoint is dropped."""
+        and the generators' states of the checkpoint that ``train`` read at
+        ``cfg.resume``, as ``save_model`` wrote them; then the checkpoint is
+        dropped. An augmentation generator that the checkpoint lacks (a run
+        without augmentation on the card) keeps its seed."""
         ckpt, self._resume_ckpt = self._resume_ckpt, None
         self.model.load_state_dict(ckpt["state_dict"], strict=True)
         self.optimizer.optimizer.load_state_dict(ckpt["optimizer"])
         self.optimizer.count = int(ckpt["opt_count"])
         self.generator.set_state(ckpt["generator"])
+        if self.aug_generator is not None and "aug_generator" in ckpt:
+            self.aug_generator.set_state(ckpt["aug_generator"])
         self.nan_skips = int(ckpt.get("nan_skips", 0))
 
     def _to_device(self, x) -> torch.Tensor:
@@ -222,6 +232,8 @@ class BaseTrainer:
             "opt_count": self.optimizer.count,
             "generator": self.generator.get_state(),
         }
+        if self.aug_generator is not None:
+            state["aug_generator"] = self.aug_generator.get_state()
         if self.cfg.get("nan_revert"):  # as the JAX state has it
             state["nan_skips"] = self.nan_skips
         save_checkpoint(self.save_root, state, name, is_best)
@@ -245,11 +257,18 @@ class BaseTrainer:
             self._log.info("=> stage1: loss config updated with %s at epoch %d",
                            dict(stage1.loss), self.i_epoch)
 
-    def _summary(self, tag, value, step):
-        self._log.info("summary %s %.6g at %d", tag, value, step)
+    def _writer(self) -> SummaryWriter:
         if self.summary_writer is None:
             self.summary_writer = SummaryWriter(self.save_root)
-        self.summary_writer.add_scalar(tag, value, step)
+        return self.summary_writer
+
+    def _summary(self, tag, value, step):
+        self._log.info("summary %s %.6g at %d", tag, value, step)
+        self._writer().add_scalar(tag, value, step)
+
+    def _images(self, tag, images):
+        """(B, H, W, C) images in [0, 1] as ``{tag}/{i}`` at this epoch."""
+        self._writer().add_images(tag, np.asarray(images), self.i_epoch)
 
     def _queue_step_metrics(self, metrics, batch_size, i_step, key_meters,
                             key_meter_names, am_batch_time, am_data_time):

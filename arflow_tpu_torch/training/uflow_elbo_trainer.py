@@ -17,9 +17,16 @@ validation losses of two epochs see the same draws. It records ``Loss``,
 ``extract_uv_entropy``), feeds a ``CalibrationCurve`` with ``track_cc``,
 writes the last batch's level-2 outputs as ``flow_fw_l2_{epoch}.npy``,
 and saves the checkpoint, the best one chosen on the validation ``Loss``.
-The sparsification and calibration plots are written as PNG files where
-matplotlib imports, with a warning where it does not; the port writes no
-image summaries.
+Its image summaries are the JAX trainer's, of the last batch: the ground
+truth (``Valid/gt_{i}``), each mixture component's flow with its weight
+drawn on where the model predicts weights (``Valid/pred_{i}_{k}``), the
+normalized entropy, the loss's sample flows, occlusion masks (where the
+``occ_type`` has them) and valid masks, and with ``track_auc`` the
+sparsification plot (``Valid/splot_{i}``). The calibration plot stays a
+file, ``calibration_{epoch}.png``. Both plots need matplotlib; without it
+they are skipped with a warning.
+
+``photometric_aug.device`` is refused (``NO_DEVICE_PHOTOMETRIC``).
 """
 
 from __future__ import annotations
@@ -37,12 +44,39 @@ from arflow_tpu_torch.utils.metrics import (
     evaluate_flow,
     evaluate_uncertainty,
 )
+from arflow_tpu_torch.utils.viz import batch_flow2rgb
 
 METRIC_KEYS = ("total", "l_ph", "l_sm", "entropy", "l_oof")
 
 
+def _draw_weights(images, weights):
+    """Each sample's mixture weight as text onto its flow image (PIL, top
+    left, as the JAX trainer draws it); the images unchanged where PIL does
+    not import. ``images``: (B, H, W, 3) float in [0, 1]; ``weights``:
+    (B,)."""
+    try:
+        import PIL.Image
+        import PIL.ImageDraw
+    except Exception:
+        return images
+    out = (np.asarray(images) * 255.0).astype(np.uint8)
+    for i in range(out.shape[0]):
+        pimg = PIL.Image.fromarray(out[i])
+        PIL.ImageDraw.Draw(pimg).text((4, 4), f"{float(weights[i]):.2f}",
+                                      fill=(0, 0, 0))
+        out[i] = np.array(pimg)
+    return out.astype(np.float32) / 255.0
+
+
 class UFlowElboTrainer(UFlowTrainer):
     KEY_METERS = ["Loss", "l_ph", "l_sm", "entropy", "l_oof"]
+    NO_DEVICE_PHOTOMETRIC = (
+        "photometric_aug.device is refused by the uflow_elbo trainer: the "
+        "JAX package's has no _device_photometric (its step feeds the plain "
+        "pair, arflow_tpu/training/uflow_elbo_trainer.py:130-165) and its "
+        "get_dataset drops the host augmentation for device: true "
+        "(arflow_tpu/data/get_dataset.py:41-45), so there it trains with no "
+        "photometric augmentation at all; ROADMAP.md queue 3")
 
     def _batch_inputs(self, data) -> list:
         return [self._to_device(data[k]) for k in ("img1", "img2")]
@@ -79,7 +113,7 @@ class UFlowElboTrainer(UFlowTrainer):
                 error_names += ["AUC", "AUC_diff"]
             error_meters = AverageMeter(i=len(error_names))
             splots, oplots = [], []
-            flows_l2 = None
+            flows_l2 = last = None
             for i_step, data in enumerate(loader):
                 img1, img2 = (self._to_device(data[k]) for k in ("img1", "img2"))
                 res = self.model(img1, img2, with_bk=True)
@@ -103,6 +137,7 @@ class UFlowElboTrainer(UFlowTrainer):
                     error_values += [float(a) for a in auc]
                 error_meters.update(error_values, img1.shape[0])
                 flows_l2 = flows[2]
+                last = (data, out, ent, flows[0], res.get("weights_fw"))
                 if i_step % self.cfg.print_freq == 0 or i_step == len(loader) - 1:
                     self._log.info(
                         "Test: %d[%d/%d] %s", i_set, i_step, self.cfg.valid_size,
@@ -118,6 +153,8 @@ class UFlowElboTrainer(UFlowTrainer):
                 np.save(os.path.join(self.save_root,
                                      f"flow_fw_l2_{self.i_epoch}.npy"),
                         flows_l2.cpu().numpy())
+            if last is not None:
+                self._valid_images(i_set, *last)
             if splots:
                 self._plot_splots(splots, oplots, sp_samples, i_set)
             all_error_avgs.extend(error_meters.avg)
@@ -129,9 +166,34 @@ class UFlowElboTrainer(UFlowTrainer):
             self.save_model(all_error_avgs[0], name="Chairs")
         return all_error_avgs, all_error_names
 
+    def _valid_images(self, i_set, data, out, ent, flows_l0, weights):
+        """The last validation batch's images, tagged as the JAX trainer
+        tags them."""
+        gt = np.asarray(data["target"]["flow"])[..., :2]
+        self._images(f"Valid/gt_{i_set}", batch_flow2rgb(gt))
+        flows_l0 = flows_l0.float().cpu().numpy()
+        if weights is not None:
+            weights = weights.float().cpu().numpy()
+        for k in range(self.loss_func.cfg.get("n_components", 1)):
+            comp = batch_flow2rgb(flows_l0[..., 2 * k:2 * (k + 1)])
+            if weights is not None:
+                comp = _draw_weights(comp, weights[:, k])
+            self._images(f"Valid/pred_{i_set}_{k}", comp)
+        ent = ent.sum(-1, keepdims=True)
+        ent = ent - ent.min()
+        self._images(f"Valid/entropy_{i_set}", ent / max(ent.max(), 1e-12))
+        n = gt.shape[0]
+        self._images(f"Valid/sample_flows_{i_set}",
+                     batch_flow2rgb(out["flow12_2"][:n].float().cpu().numpy()))
+        if out["occu_mask12"] is not None:
+            self._images(f"Valid/occu_masks_{i_set}",
+                         out["occu_mask12"][:n].float().cpu().numpy())
+        self._images(f"Valid/valid_masks_{i_set}",
+                     out["valid_mask12"][:n].float().cpu().numpy())
+
     def _plot_splots(self, splots, oplots, sp_samples, i_set):
-        """The mean sparsification plot and the oracle's, as
-        ``splot_{i_set}_{epoch}.png``."""
+        """The mean sparsification plot and the oracle's, as the image
+        ``Valid/splot_{i_set}``."""
         try:
             import matplotlib
 
@@ -143,11 +205,13 @@ class UFlowElboTrainer(UFlowTrainer):
             ax.plot(x, np.mean(splots, axis=0))
             ax.plot(x, np.mean(oplots, axis=0))
             ax.legend(["splot", "oracle"])
-            fig.savefig(os.path.join(self.save_root,
-                                     f"splot_{i_set}_{self.i_epoch}.png"))
+            fig.canvas.draw()
+            buf = np.asarray(fig.canvas.buffer_rgba())[:, :, :3]
             plt.close(fig)
         except Exception as e:
             self._log.warning("splot rendering failed: %s", e)
+            return
+        self._writer().add_image(f"Valid/splot_{i_set}", buf, self.i_epoch)
 
     def _plot_calibration(self, cc):
         """The calibration curve, as ``calibration_{epoch}.png``."""

@@ -1,14 +1,17 @@
 """Optical-flow file IO: Middlebury .flo and KITTI 16-bit PNG (the port's
-own copy of ``arflow_tpu/utils/flow_io.py``, numpy only).
+own copy of ``arflow_tpu/utils/flow_io.py``).
 
 ``.flo`` is read and written with numpy. The KITTI PNG functions import
 cv2 inside the call; KITTI is not on the main path, and nothing else here
-needs cv2.
+needs cv2. ``load_flow`` reads both through the native library
+(``arflow_tpu_torch.native``) where it is built.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from arflow_tpu_torch import native
 
 TAG_FLOAT = 202021.25
 
@@ -72,7 +75,15 @@ def write_kitti_png(path: str, flow: np.ndarray, mask: np.ndarray | None = None)
 
 
 def load_flow(path) -> np.ndarray:
-    """A KITTI ``.png`` or a ``.flo``, by extension."""
+    """A KITTI ``.png`` or a ``.flo``, by extension: through the native
+    readers where they are built, else numpy/cv2."""
+    if native.available():
+        try:
+            if str(path).endswith(".png"):
+                return native.read_kitti_png(str(path))
+            return native.read_flo(str(path))
+        except OSError:  # a file the native decoder refuses
+            pass
     if str(path).endswith(".png"):
         return read_kitti_png(str(path))
     return read_flo(str(path))

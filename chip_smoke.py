@@ -56,7 +56,13 @@ under injected noise against the plain cost volume and float64, 10 steps
 of the first two through ``UFlowTrainer`` with the reference's AdamW,
 timed and profiled, and ``train.remat``'s step; pwclite_cli:
 ``train_main`` with that configuration, validation EPE, a resume and an
-overfit check). It checks the outputs, and
+overfit check); and the training input path (phase input_path, at
+384x512: the native host library against the numpy hue and decode, the
+host's ms per sample by stage with the hue in numpy and native, the
+photometric augmentation on the card against the CPU's with its launches,
+a ``uflow`` step and a resume with it, and bf16 ``train_main`` with each
+of the three input paths). The ``train_main`` phases also check the image
+summaries their validations write. It checks the outputs, and
 times the kernels, the forwards, the streams, the train steps and the
 entry points. Each phase prints
 one JSON line; any failure raises and the script exits non-zero. It prints
@@ -74,6 +80,7 @@ import contextlib
 import copy
 import cProfile
 import importlib
+import importlib.util
 import json
 import logging
 import os
@@ -93,7 +100,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from arflow_tpu_torch import Config, load_config
+from arflow_tpu_torch import Config, load_config, native
 from arflow_tpu_torch.cli import (
     evaluate_flo_cli,
     fit_penalty_cli,
@@ -102,6 +109,10 @@ from arflow_tpu_torch.cli import (
     train_main,
 )
 from arflow_tpu_torch.data import Chairs, ConcatDataset
+from arflow_tpu_torch.data import transforms as host_transforms
+from arflow_tpu_torch.data.datasets import read_pnm
+from arflow_tpu_torch.data.device_aug import make_photometric
+from arflow_tpu_torch.data.get_dataset import get_dataset
 from arflow_tpu_torch.data.loader import DataLoader
 from arflow_tpu_torch.losses import get_loss
 from arflow_tpu_torch.losses import blocks as elbo_blocks_module
@@ -1025,20 +1036,48 @@ def same_state(a, b) -> bool:
 
 
 def trainer_state(trainer) -> dict:
-    """What a checkpoint restores, copied."""
-    return copy.deepcopy({
+    """What a checkpoint restores, copied: the augmentation generator's
+    state too where the trainer augments on the card."""
+    state = {
         "state_dict": trainer.model.state_dict(),
         "optimizer": trainer.optimizer.optimizer.state_dict(),
         "opt_count": trainer.optimizer.count,
         "generator": trainer.generator.get_state(),
         "epoch": trainer.i_epoch, "i_iter": trainer.i_iter,
-        "best_error": trainer.best_error})
+        "best_error": trainer.best_error}
+    if trainer.aug_generator is not None:
+        state["aug_generator"] = trainer.aug_generator.get_state()
+    return copy.deepcopy(state)
 
 
 def events_of(save_root, tag) -> list:
     """The values of the scalar ``tag`` in ``save_root``'s events.jsonl."""
     with open(os.path.join(save_root, "events.jsonl")) as f:
         return [r["value"] for r in map(json.loads, f) if r["tag"] == tag]
+
+
+def check_valid_images(tag, save_root, want, epochs) -> dict:
+    """The image summaries of ``save_root``'s validations: at each epoch in
+    ``epochs`` exactly the tags ``want`` (a batch's images as
+    ``{tag}/{b}``, a plot as its tag), each row's PNG file written.
+    Returns their count and tags; raises where they differ."""
+    with open(os.path.join(save_root, "events.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if "image" in r]
+    got = collections.defaultdict(set)
+    for r in rows:
+        got[r["step"]].add(r["tag"] if r["tag"] in want
+                           else r["tag"].rsplit("/", 1)[0])
+    missing = [r["image"] for r in rows if not os.path.isfile(r["image"])
+               or os.path.getsize(r["image"]) == 0]
+    if dict(got) != {e: set(want) for e in epochs} or missing:
+        raise AssertionError(f"({tag}) validation images: {dict(got)}, not "
+                             f"{sorted(want)} at epochs {list(epochs)}; "
+                             f"files missing: {missing}")
+    return {"image_rows": len(rows), "image_tags": sorted(want)}
+
+
+def matplotlib_imports() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def stacked_pairs(root, split, n, dev) -> list:
@@ -1109,8 +1148,13 @@ def run_cli_phase(tmp, dev, smi):
     rows = torch.stack([s["metrics"] for s in probe.steps]).cpu()
     epes = events_of(dir_a, "Valid_EPE_0")
     files = sorted(os.listdir(dir_a))
-    want = {"cost_volume": 8 * n_steps + 4 * n_valid * CLI_EPOCHS,
+    # validation: a forward per pair, and one in both directions of its
+    # last batch for the occlusion mask's image
+    want = {"cost_volume": 8 * n_steps + (4 * n_valid + 8) * CLI_EPOCHS,
             "cost_volume_bwd": 8 * n_steps}
+    valid_images = check_valid_images("cli", dir_a, {"Valid/gt", "Valid/pred_0",
+                                               "Valid/mask_0"},
+                                range(1, CLI_EPOCHS + 1))
     # The trainer's laps: data = the wait for the loader plus the copy to
     # the card, which waits for the previous step's kernels; batch = the
     # host's time to queue the step. A first step of an epoch also waits
@@ -1204,7 +1248,7 @@ def run_cli_phase(tmp, dev, smi):
           "host_ms_per_sample": {k: 1e3 * v / TB for k, v in stage_s.items()},
           "validation_ms_per_pair": 1e3 * (valid_s - save_s) / (n_valid * CLI_EPOCHS),
           "save_ms": 1e3 * save_s / len(probe.seconds["save_model"]),
-          "peak_memory_gb": peak_gb, "card": smi})
+          **valid_images, "peak_memory_gb": peak_gb, "card": smi})
     if steps_a != n_steps or epochs_a != CLI_EPOCHS or len(rows) != n_steps:
         raise AssertionError(f"run A: {steps_a} steps in {epochs_a} epochs, "
                              f"not {n_steps} in {CLI_EPOCHS}")
@@ -1311,6 +1355,300 @@ def run_cli_phase(tmp, dev, smi):
     if not all(e <= t for e, t in zip(errs, tols)):
         raise AssertionError(f".flo vs the plain cost volume: {errs} > {tols}")
     return launches, inf_launches
+
+
+# The training input path (phase input_path): the native library on this
+# host, the host's time per sample by stage, the photometric augmentation
+# on the card, and bf16 train_main with each of the three input paths. The
+# train entry of chairs_uflow.json is listed INPUT_REPEATS times, so that
+# one epoch over the cli phase's 30 train pairs has 18 steps of 8.
+INPUT_REPEATS = 5
+INPUT_HOST_SAMPLES = 16
+INPUT_HUE_SHIFTS = (-0.5, -0.37, -1e-9, 0.0, 0.21, 0.4999)
+DECODE_ATOL = 6e-8  # px * (1/255) against px / 255: half an ulp at 1.0
+AUG_ATOL = 1e-6
+ALL_PHOTOMETRIC = {"brightness": 0.3, "contrast": 0.3, "saturation": 0.3,
+                   "hue": 0.5, "gamma": 1, "swap_channels": True}
+
+
+def phase_input_path(dev, smi):
+    """The training input path at FlyingChairs' 384x512 on the cli phase's
+    directory (written anew): (a) the native library on the card's host against
+    the numpy paths, (b) one host thread's ms per sample by stage for
+    chairs_uflow.json's augmentation with the hue in numpy and native, (c)
+    ``photometric_aug.device``: ``apply``'s device ms and launches at b8,
+    the card's output against the CPU's, one ``uflow`` step with 8 + 8
+    cost-volume launches, a resume restoring both generators; (d) bf16
+    ``train_main`` at b8 with the host augmentation in numpy, native, and on
+    the card. Under ``PerSampleDraws``, as the cli phase."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_input_")
+    try:
+        with PerSampleDraws(SEED).active():
+            return run_input_path_phase(tmp, dev, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def numpy_hue(x, d):
+    hsv = host_transforms._rgb_to_hsv(x)
+    hsv[..., 0] = (hsv[..., 0] + d) % 1.0
+    return host_transforms._hsv_to_rgb(hsv)
+
+
+def native_pinned(on: bool):
+    """The native library as built (on) or held off (numpy/PIL paths)."""
+    if on:
+        return contextlib.nullcontext()
+    return mock.patch.object(native, "available", lambda: False)
+
+
+def input_native_checks(root, smi) -> bool:
+    """(a): whether the library built, the compiler, and where it did,
+    its hue against the numpy hue bit for bit and its decode against
+    ``px / 255.0`` (the numpy PPM reader, PIL for a PNG)."""
+    try:
+        cxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError) as e:
+        cxx = f"g++ unavailable: {e}"
+    avail = native.available()
+    row = {"phase": "input_native", "native_available": avail,
+           "build_error": native.build_error(), "compiler": cxx}
+    if not avail:
+        row["note"] = ("the native library did not build on the card's host: the "
+                       "host's input path below is numpy only")
+        emit(row)
+        return False
+    rs = np.random.RandomState(SEED)
+    x = rs.rand(2, CH, CW, 3).astype(np.float32)
+    x[1] = (rs.randint(0, 256, x[1].shape) / 255.0).astype(np.float32)
+    x[0, :8] = x[0, :8, :, :1]  # grey rows
+    x[1, 0, :3] = [[1.0, 0.0, 0.0], [1.0, 0.0, 1e-7], [0.5, 0.5, 0.25]]
+    t0 = time.perf_counter()
+    hue = {str(d): native.hue_shift(x, d) for d in INPUT_HUE_SHIFTS}
+    native_hue_ms = 1e3 * (time.perf_counter() - t0) / len(INPUT_HUE_SHIFTS)
+    t0 = time.perf_counter()
+    ref = {str(d): numpy_hue(x, d) for d in INPUT_HUE_SHIFTS}
+    numpy_hue_ms = 1e3 * (time.perf_counter() - t0) / len(INPUT_HUE_SHIFTS)
+    mismatches = {d: int((hue[d] != ref[d]).sum()) for d in hue}
+    ppms = sorted(f for f in os.listdir(root) if f.endswith(".ppm"))[:4]
+    decode = [(native.load_image(os.path.join(root, f)),
+               read_pnm(os.path.join(root, f))) for f in ppms]
+    row["has_png"] = native.has_png()  # libpng's headers on the card's host
+    if row["has_png"] and importlib.util.find_spec("PIL") is not None:
+        from PIL import Image
+
+        png = os.path.join(root, "check.png")
+        Image.fromarray((x[1] * 255).round().astype(np.uint8)).save(png)
+        with Image.open(png) as im:
+            decode.append((native.load_image(png),
+                           np.asarray(im.convert("RGB"), np.float32) / 255.0))
+        os.remove(png)
+    decode_err = max(max_abs(torch.from_numpy(a), torch.from_numpy(b))
+                     for a, b in decode)
+    row.update(hue_shape=list(x.shape),
+               hue_mismatches=mismatches,
+               hue_bit_equal=not any(mismatches.values()),
+               native_hue_ms_per_call=native_hue_ms,
+               numpy_hue_ms_per_call=numpy_hue_ms,
+               decode_files=len(decode), decode_max_abs_err=decode_err,
+               decode_values_differing=int(sum((a != b).sum() for a, b in decode)),
+               decode_atol=DECODE_ATOL, card=smi)
+    emit(row)
+    if not row["hue_bit_equal"]:
+        raise AssertionError(f"native hue differs from numpy: {mismatches}")
+    if not decode_err <= DECODE_ATOL:
+        raise AssertionError(f"native decode {decode_err} from px/255")
+    return True
+
+
+def host_stage_ms(root, save_root, on: bool) -> dict:
+    """(b): one host thread's ms per sample in each stage of chairs_uflow.json's
+    train augmentation (decode, geometric: hflip, photometric: hue 0.5 and
+    swapped channels) over INPUT_HOST_SAMPLES samples."""
+    with native_pinned(on):
+        train_set, _ = get_dataset(cli_config(root, save_root, 1), seed=SEED)
+        chairs = train_set.datasets[0]
+        stage_s = {"decode": 0.0, "geometric": 0.0, "photometric": 0.0}
+        for sample in chairs.samples[:INPUT_HOST_SAMPLES]:
+            t1 = time.perf_counter()
+            images, _ = chairs._load_sample(sample)
+            t2 = time.perf_counter()
+            images = chairs.geometric_transform(images)
+            t3 = time.perf_counter()
+            chairs.photometric_transform(images)
+            t4 = time.perf_counter()
+            for key, dt in zip(stage_s, (t2 - t1, t3 - t2, t4 - t3)):
+                stage_s[key] += dt
+    out = {k: 1e3 * v / INPUT_HOST_SAMPLES for k, v in stage_s.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def device_aug_rows(root, dev, smi) -> list:
+    """(c): ``apply`` at a b8 pair batch for chairs_uflow.json's
+    augmentation and for every op: device ms (CUDA events and the
+    profiler's kernel time), launches, the bound, and the card's output
+    against the CPU's on the same params."""
+    img1, img2, _ = stacked_pairs(root, "train", TB, dev)
+    x = torch.stack([img1, img2], dim=1)  # (8, 2, 384, 512, 3)
+    ph = dict(load_config(CONFIG).data[0].photometric_aug)
+    rows = []
+    for name, cfg in (("chairs_uflow", ph), ("all_ops", ALL_PHOTOMETRIC)):
+        sample_params, apply = make_photometric(cfg)
+        params = sample_params(torch.Generator(device=dev).manual_seed(SEED),
+                               TB, dev)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: apply(x, params), iters=20)
+            prof = profile_window(lambda: apply(x, params), 5, ms)
+            got = apply(x, params).cpu()
+            want = apply(x.cpu(), {k: v.cpu() for k, v in params.items()})
+        err = max_abs(got, want)
+        # one read of the pair batch and one write of its augmented copy
+        bound_ms = 1e3 * 2 * x.numel() * 4 / PEAK_BYTES_PER_S
+        rows.append({"config": name, "ops": sorted(cfg), "shape": list(x.shape),
+                     "ms": ms, "device_ms": prof["device_ms_per_call"],
+                     "launches": prof["kernel_launches_per_call"],
+                     "bound_ms": bound_ms, "bound_by": "bytes",
+                     "top_kernels": prof["top_kernels"][:5],
+                     "max_abs_err_vs_cpu": err, "atol": AUG_ATOL})
+        if not err <= AUG_ATOL:
+            raise AssertionError(f"apply on the card ({name}) {err} from the CPU's")
+    emit({"phase": "input_device_aug", "rows": rows, "card": smi})
+    return rows
+
+
+def device_aug_config(root, save_root, epochs, resume=None):
+    cfg = cli_config(root, save_root, epochs, resume)
+    cfg.data[0].photometric_aug.device = True
+    return cfg
+
+
+def device_aug_step(root, tmp, dev, smi) -> dict:
+    """(c): one float32 ``uflow`` step augmenting on the card, its
+    launches and ms beside the step fed the plain pair as ``_ph``; then
+    ``train_main`` B (1 epoch, saves) and C (its resume), which must
+    restore both generators bit for bit."""
+    log = logging.getLogger("chip_smoke")
+    cfg = device_aug_config(root, os.path.join(tmp, "step"), 1)
+    img1, img2, _ = stacked_pairs(root, "train", TB, dev)
+    batch = {"img1": img1, "img2": img2}
+    model = get_model(cfg.model, device=dev, seed=SEED)
+    trainer = UFlowTrainer([batch], None, model, get_loss(cfg.loss), log,
+                           cfg.save_root, cfg.train, model_cfg=cfg.model,
+                           full_cfg=cfg)
+    trainer._ensure_init()
+    inputs = trainer._batch_inputs(batch)
+    reset_launch_counts()
+    row = trainer.train_step(*inputs).cpu()
+    launches = {k.name: k.launches for k in KERNELS}
+    step_ms = cuda_ms(lambda: trainer.train_step(*inputs), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: trainer.train_step(img1, img2, img1, img2),
+                       iters=5, warmup=1)
+    del trainer, model
+
+    dir_b, dir_c = os.path.join(tmp, "b"), os.path.join(tmp, "c")
+    run_b = train_main(device_aug_config(root, dir_b, 1), log, device=dev)
+    ckpt_b = os.path.join(dir_b, "Chairs_ckpt.pth.tar")
+    restored = {}
+    restore = BaseTrainer._restore_resume
+
+    def restore_and_copy(trainer):
+        restore(trainer)
+        restored.update(trainer_state(trainer))
+
+    with mock.patch.object(BaseTrainer, "_restore_resume", restore_and_copy):
+        run_c = train_main(device_aug_config(root, dir_c, CLI_EPOCHS, ckpt_b),
+                           log, device=dev)
+    want_b = trainer_state(run_b)
+    differ = sorted(k for k in want_b if not same_state(restored.get(k), want_b[k]))
+    out = {"phase": "input_device_step", "shape": [TB, CH, CW],
+           "metrics": row.tolist(), "launches": launches,
+           "step_ms": step_ms, "step_ms_without_aug": plain_ms,
+           "resume_restored": sorted(restored), "resume_differ": differ,
+           "resumed_to": [run_c.i_epoch, run_c.i_iter], "card": smi}
+    emit(out)
+    if not bool(torch.isfinite(row).all()):
+        raise AssertionError(f"device-augmented step: non-finite {row.tolist()}")
+    if launches != {"cost_volume": 8, "cost_volume_bwd": 8}:
+        raise AssertionError(f"device-augmented step launched {launches}")
+    if "aug_generator" not in restored or differ:
+        raise AssertionError(f"resume restored {sorted(restored)}; differs: {differ}")
+    return launches
+
+
+def input_run_config(root, save_root, device_aug):
+    """chairs_uflow.json in bf16, its train entry INPUT_REPEATS times, one
+    epoch without validation; the photometric augmentation on the card
+    where ``device_aug``."""
+    cfg = device_aug_config(root, save_root, 1) if device_aug else \
+        cli_config(root, save_root, 1)
+    cfg.model.dtype = "bfloat16"
+    cfg.train.update(valid_freq=10**9)
+    cfg.data = [cfg.data[0]] * INPUT_REPEATS + [
+        e for e in cfg.data if e.type == "valid"]
+    return cfg
+
+
+def input_train_main(root, tmp, dev, smi, mode) -> dict:
+    """(d): bf16 train_main at b8 with the host augmentation in numpy
+    ("numpy"), native ("native") or on the card ("device"): steady
+    samples/s and loader-wait share after the batches the loader's threads
+    had begun at its start."""
+    log = logging.getLogger("chip_smoke")
+    probe = EntryPointProbe()
+    reset_launch_counts()
+    with native_pinned(mode != "numpy"), probe.active():
+        trainer = train_main(input_run_config(root, os.path.join(tmp, mode),
+                                              mode == "device"), log, device=dev)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    workers = trainer.train_loader.num_workers
+    steady = probe.steps[workers + 1:]
+    laps = sum(st["data_s"] + st["batch_s"] for st in steady)
+    waits = [w for shuffled, w in probe.waits if shuffled][workers + 1:]
+    batch = next(iter(trainer.train_loader))
+    inputs = trainer._batch_inputs(batch)
+    step_ms = cuda_ms(lambda: trainer.train_step(*inputs), iters=5, warmup=1)
+    rows = torch.stack([st["metrics"] for st in probe.steps]).cpu()
+    b = trainer.cfg.batch_size
+    out = {"mode": mode, "steps": len(probe.steps), "steady_steps": len(steady),
+           "samples_per_s_steady": b * len(steady) / laps,
+           "loader_wait_share_steady": sum(waits) / laps,
+           "data_time_share_steady": sum(st["data_s"] for st in steady) / laps,
+           "step_laps_s": [st["data_s"] + st["batch_s"] for st in probe.steps],
+           "device_bound_ms_per_step": step_ms,
+           "device_bound_samples_per_s": 1e3 * b / step_ms,
+           "launches": launches, "losses": rows[:, 0].tolist()}
+    if not bool(torch.isfinite(rows).all()) or len(steady) < 10:
+        raise AssertionError(f"input run {mode}: {len(probe.steps)} steps, "
+                             f"losses {rows[:, 0].tolist()}")
+    n = len(probe.steps)
+    if launches != {"cost_volume": 8 * n, "cost_volume_bwd": 8 * n}:
+        raise AssertionError(f"input run {mode} launched {launches} in {n} steps")
+    return out
+
+
+def run_input_path_phase(tmp, dev, smi):
+    root = os.path.join(tmp, "chairs")
+    os.makedirs(root)
+    write_chairs_dir(root, dev)
+    avail = input_native_checks(root, smi)
+    modes = ("numpy", "native") if avail else ("numpy",)
+    stages = {m: host_stage_ms(root, os.path.join(tmp, "stages"), m == "native")
+              for m in modes}
+    emit({"phase": "input_host_stages", "shape": [CH, CW],
+          "samples": INPUT_HOST_SAMPLES, "host_ms_per_sample": stages,
+          "card": smi})
+    device_aug_rows(root, dev, smi)
+    step_launches = device_aug_step(root, tmp, dev, smi)
+    runs = {m: input_train_main(root, tmp, dev, smi, m)
+            for m in modes + ("device",)}
+    emit({"phase": "input_train_main", "shape": [TB, CH, CW],
+          "dtype": "bfloat16", "native_available": avail, "runs": runs,
+          "card": smi})
+    return {"device_aug_step": step_launches,
+            **{f"train_main_{m}": r["launches"] for m, r in runs.items()}}
 
 
 # The probabilistic UFlow path at the shape sintel_uflow_elbo_inference.json
@@ -2096,6 +2434,13 @@ def run_elbo_cli_phase(tmp, dev, smi):
     steady_laps = sum(s["data_s"] + s["batch_s"] for s in steady)
     valid_s = sum(probe.seconds["_validate_with_gt"])
     save_s = sum(probe.seconds["save_model"])
+    # n_components 1, occ_type sample, track_auc: the splot
+    valid_images = check_valid_images(
+        "elbo_cli", dir_a,
+        {"Valid/gt_0", "Valid/pred_0_0", "Valid/entropy_0", "Valid/sample_flows_0",
+         "Valid/occu_masks_0", "Valid/valid_masks_0"}
+        | ({"Valid/splot_0"} if matplotlib_imports() else set()),
+        range(1, CLI_EPOCHS + 1))
     emit({"phase": "elbo_cli_train", "run": "A", "config": "chairs_uflow_elbo.json",
           "shape": [EB, EH, EW], "pairs_shape": [CH, CW],
           "epochs": run_a.i_epoch, "steps": run_a.i_iter, "launches": launches,
@@ -2107,7 +2452,7 @@ def run_elbo_cli_phase(tmp, dev, smi):
           "data_time_share": sum(s["data_s"] for s in probe.steps) / sum(laps),
           "validation_ms_per_pair": 1e3 * (valid_s - save_s) / (n_valid * CLI_EPOCHS),
           "save_ms": 1e3 * save_s / max(len(probe.seconds["save_model"]), 1),
-          "peak_memory_gb": peak_gb, "card": smi})
+          **valid_images, "peak_memory_gb": peak_gb, "card": smi})
     if (run_a.i_iter, run_a.i_epoch, len(rows)) != (n_steps, CLI_EPOCHS, n_steps):
         raise AssertionError(f"run A: {run_a.i_iter} steps in {run_a.i_epoch} "
                              f"epochs, not {n_steps} in {CLI_EPOCHS}")
@@ -2293,10 +2638,12 @@ def mixture_cli_config(root, save_root, epochs, resume=None):
 
 
 def cli_runs(tag, make_cfg, trainer_cls, tmp, dev, smi, batch, launches_want,
-             valid_names, shape=(MH, MW)):
+             valid_names, want_images, n_valid, shape=(MH, MW)):
     """``train_main`` of ``make_cfg(save_root, epochs, resume)``: run A, 2
-    epochs of 3 steps with validation and checkpoints (``{tag}_cli_train``);
-    then ``resume_runs``. Returns run A's launches."""
+    epochs of 3 steps with validation of ``n_valid`` pairs, its image
+    summaries ``want_images`` (``check_valid_images``) and checkpoints
+    (``{tag}_cli_train``); then ``resume_runs``. Returns run A's
+    launches."""
     log = logging.getLogger("chip_smoke")
     steps_per_epoch = ELBO_CLI_EPOCH_SIZE + 1
     n_steps = CLI_EPOCHS * steps_per_epoch
@@ -2315,13 +2662,19 @@ def cli_runs(tag, make_cfg, trainer_cls, tmp, dev, smi, batch, launches_want,
     valid = {name: events_of(dir_a, f"Valid_{name}_0") for name in valid_names}
     laps = [st["data_s"] + st["batch_s"] for st in probe.steps]
     want = launches_want(n_steps)
+    valid_images = check_valid_images(f"{tag}_cli", dir_a, want_images,
+                                range(1, CLI_EPOCHS + 1))
+    valid_s = sum(probe.seconds["_validate_with_gt"])
+    save_s = sum(probe.seconds["save_model"])
     emit({"phase": f"{tag}_cli_train", "run": "A", "shape": [batch, *shape],
           "epochs": run_a.i_epoch, "steps": run_a.i_iter, "launches": launches,
           "launches_want": want, "losses": rows[:, 0].tolist(), "valid": valid,
           "best_error": run_a.best_error, "files": files,
           "seconds_train_main": seconds,
           "samples_per_s": batch * len(laps) / sum(laps),
-          "validation_s": sum(probe.seconds["_validate_with_gt"]),
+          "validation_s": valid_s,
+          "validation_ms_per_pair": 1e3 * (valid_s - save_s) / (n_valid * CLI_EPOCHS),
+          **valid_images,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
     if (run_a.i_iter, run_a.i_epoch, len(rows)) != (n_steps, CLI_EPOCHS, n_steps):
         raise AssertionError(f"({tag}) run A: {run_a.i_iter} steps in "
@@ -2403,7 +2756,12 @@ def phase_mixture_cli(dev, smi):
                 # the config's valid batch is 1: 2 forwards per validation
                 lambda n: {"cost_volume": 4 * n + 8 * CLI_EPOCHS,
                            "cost_volume_bwd": 4 * n},
-                ("Loss", "EPE", "AUC", "entropy"))
+                ("Loss", "EPE", "AUC", "entropy"),
+                # two components, each with its weight drawn on
+                {"Valid/gt_0", "Valid/pred_0_0", "Valid/pred_0_1",
+                 "Valid/entropy_0", "Valid/sample_flows_0", "Valid/occu_masks_0",
+                 "Valid/valid_masks_0"}
+                | ({"Valid/splot_0"} if matplotlib_imports() else set()), 2)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2581,7 +2939,7 @@ def phase_mse_cli(dev, smi):
             tmp, dev, smi, MB,
             lambda n: {"cost_volume": 4 * n + 4 * n_valid * CLI_EPOCHS,
                        "cost_volume_bwd": 4 * n},
-            ("EPE",))
+            ("EPE",), {"Valid/gt_0", "Valid/pred_0"}, n_valid)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4007,7 +4365,8 @@ def phase_pwclite_cli(dev, smi):
                 # one forward (5 launches) per validation pair, 2 pairs
                 lambda n: {"cost_volume": 10 * n + 10 * CLI_EPOCHS,
                            "cost_volume_bwd": 10 * n},
-                ("EPE",), shape=(TH, TW))
+                # the unflow loss returns no occlusion mask: no mask image
+                ("EPE",), {"Valid/gt", "Valid/pred_0"}, 2, shape=(TH, TW))
         img1, img2, _ = stacked_pairs(root, "train", TB, dev)
         cfg = make_cfg(os.path.join(tmp, "overfit"), 1, None)
         model = get_model(cfg.model, device=dev, seed=SEED)
@@ -4065,6 +4424,7 @@ def main() -> int:
     prob_launches["cli"] = timed("prob_cli", phase_prob_cli, dev, smi)
     train_launches = timed("train", phase_train, cfg, dev, smi)
     cli_launches, cli_inference_launches = timed("cli", phase_cli, dev, smi)
+    input_launches = timed("input_path", phase_input_path, dev, smi)
     elbo_err, elbo_rows, elbo_grad_err, elbo_grad_rows = timed(
         "elbo_kernels", phase_elbo_kernels, dev, smi)
     elbo_cli_launches = timed("elbo_cli", phase_elbo_cli, dev, smi)
@@ -4124,6 +4484,11 @@ def main() -> int:
         # on 2 pairs, at 384x512 b8 (phase cli).
         "launches_cli": cli_launches["cost_volume"],
         "launches_cli_inference": cli_inference_launches["cost_volume"],
+        # The training input path (phase input_path): one uflow step that
+        # augments on the card at 384x512 b8, and bf16 train_main's 18 steps
+        # with the host augmentation in numpy, native and on the card.
+        "launches_input_path": {k: v["cost_volume"]
+                                for k, v in input_launches.items()},
         # The probabilistic path (phases prob_*): one forward of each model
         # setup at 448x1024 b1 and of setup (a) at b8, the 12-frame streams
         # without and with with_bw, and inference_main on 12 Sintel pairs.
@@ -4193,6 +4558,8 @@ def main() -> int:
         "bound_by": "+".join(sorted({r["bound_by"] for r in grad_rows})),
         "library_ms": None,
         "launches_cli": cli_launches["cost_volume_bwd"],
+        "launches_input_path": {k: v["cost_volume_bwd"]
+                                for k, v in input_launches.items()},
         "launches_elbo": {k: v["cost_volume_bwd"] for k, v in elbo_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in elbo_grad_rows[key])
            for key in elbo_grad_rows for what in ("ms", "plain_ms", "bound_ms")},

@@ -104,8 +104,11 @@ def _run(root, save_root, epoch_num, resume=None):
 
 
 def _events(save_root):
+    """(tag, step, value) of each scalar row and (tag, step, file name) of
+    each image row."""
     with open(os.path.join(save_root, "events.jsonl")) as f:
-        return sorted((r["tag"], r["step"], r["value"])
+        return sorted((r["tag"], r["step"],
+                       r["value"] if "value" in r else os.path.basename(r["image"]))
                       for r in map(json.loads, f))
 
 
@@ -123,9 +126,10 @@ def test_resume_continues_bit_for_bit(tmp_path):
     assert (tr_b.i_epoch, tr_b.i_iter) == (1, 2)
     events_a, events_c = _events(tmp_path / "a"), _events(tmp_path / "c")
     # C trained iterations 2-3 and validated epoch 2, with A's metric rows
-    # (Train_* are logged per iteration, Valid_EPE_0 per epoch)
+    # (Train_* are logged per iteration, Valid_EPE_0 per epoch) and image
+    # rows (Valid/gt, pred_0 and mask_0 of the one valid pair, per epoch)
     assert events_c == [e for e in events_a if e[1] >= 2]
-    assert len(events_c) == 2 * 4 + 1
+    assert len(events_c) == 2 * 4 + 1 + 3
     assert_state_equal(tr_c.model.state_dict(), tr_a.model.state_dict(), "weights")
     assert_state_equal(tr_c.optimizer.optimizer.state_dict(),
                        tr_a.optimizer.optimizer.state_dict(), "adam")

@@ -4,8 +4,9 @@ seeds, the numpy PPM reader against PIL, each dataset's sample collection,
 and ``build_loaders`` over two epochs of ``configs/chairs_uflow.json``'s
 data section.
 
-The JAX side is pinned to its PIL/numpy path: its native decoder and
-resize compute in another order and may differ in the last bit.
+Both packages are pinned to their PIL/numpy paths: the native decoders
+and resize compute in another order and may differ from them in the last
+bit. One case runs ``build_loaders`` with both native libraries on.
 """
 
 import json
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 
 import arflow_tpu.native
+import arflow_tpu_torch.native
 from arflow_tpu.cli import build_loaders as jax_build_loaders
 from arflow_tpu.config import Config as JaxConfig
 from arflow_tpu.data import datasets as jax_datasets
@@ -34,9 +36,14 @@ from torch_data_util import make_chairs_dir, write_ppm
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+JAX_NATIVE = arflow_tpu.native.available
+PORT_NATIVE = arflow_tpu_torch.native.available
+
+
 @pytest.fixture(autouse=True)
 def jax_numpy_path(monkeypatch):
     monkeypatch.setattr(arflow_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(arflow_tpu_torch.native, "available", lambda: False)
 
 
 def assert_same(a, b, where="batch"):
@@ -248,6 +255,34 @@ def test_loaders_match_jax_over_two_epochs(tmp_path):
         orders.append([r for b in port_batches for r in b["img1_rpath"]])
         assert_same(next(iter(port_valid[0])), next(iter(jax_valid[0])), "valid")
     assert orders[0] != orders[1]
+
+
+def test_loaders_match_jax_with_both_natives(tmp_path, monkeypatch):
+    """The same data section through both packages with their native
+    libraries on: decode, flip and swap bit for bit, and the ``_ph``
+    copies' hue within the JAX library's gap from numpy (its float32
+    reciprocal and fused multiply-adds; the port's hue is numpy's, bit for
+    bit: ``test_torch_native_io.py``)."""
+    monkeypatch.setattr(arflow_tpu.native, "available", JAX_NATIVE)
+    monkeypatch.setattr(arflow_tpu_torch.native, "available", PORT_NATIVE)
+    assert arflow_tpu.native.available() and arflow_tpu_torch.native.available()
+    import logging
+
+    root = make_chairs_dir(tmp_path / "chairs", np.random.RandomState(4),
+                           n=8, h=32, w=48)
+    log = logging.getLogger("test")
+    port_train, port_valid = build_loaders(_chairs_cfg(Config, root, 1), log)
+    jax_train, jax_valid = jax_build_loaders(_chairs_cfg(JaxConfig, root, 1), log)
+    for epoch in (0, 1):
+        port_train.set_epoch(epoch)
+        jax_train.set_epoch(epoch)
+        for a, b in zip(list(port_train), list(jax_train)):
+            ph = {k: (a.pop(k), b.pop(k)) for k in ("img1_ph", "img2_ph")}
+            assert_same(a, b, f"epoch {epoch}")
+            for k, (pa, pb) in ph.items():
+                assert pa.dtype == pb.dtype == np.float32
+                np.testing.assert_allclose(pa, pb, rtol=0, atol=2e-6, err_msg=k)
+    assert_same(next(iter(port_valid[0])), next(iter(jax_valid[0])), "valid")
 
 
 def test_loader_propagates_item_errors():

@@ -109,7 +109,9 @@ def test_uflow_trainer_validates_with_kitti_masks(tmp_path):
              for _ in range(2)]
     cfg = Config({
         "model": {"type": "uflow"},
-        "loss": {"type": "uflow", "smooth_order": 1},
+        # complete: validation's images run the loss for the occlusion mask
+        "loss": {"type": "uflow", "w_census": 1.0, "w_smooth": 4.0,
+                 "smooth_order": 1, "edge_constant": 150.0, "with_bk": True},
         "train": {"valid_size": 10, "print_freq": 1, "valid_masks": True,
                   "save_iter": 10**9, "epoch_size": 1}})
     model = get_model(cfg.model, device="cpu", seed=1)

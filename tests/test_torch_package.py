@@ -47,8 +47,10 @@ print(" ".join(names), "|", bad)
 """
 
 # The entry points, the host-side pipeline, the probabilistic path, its
-# ELBO and MSE training, the export, stream and penalty tools, which no
-# earlier module imported: they must be among the modules checked.
+# ELBO and MSE training, the export, stream and penalty tools, the native
+# library's loader, the augmentation on the card, the flow images and the
+# host allocator, which no earlier module imported: they must be among the
+# modules checked.
 ENTRY_AND_DATA = [
     "arflow_tpu_torch.cli", "arflow_tpu_torch.data",
     "arflow_tpu_torch.data.datasets", "arflow_tpu_torch.data.get_dataset",
@@ -65,6 +67,8 @@ ENTRY_AND_DATA = [
     "arflow_tpu_torch.tools", "arflow_tpu_torch.tools.penalty_em",
     "arflow_tpu_torch.models.pwclite", "arflow_tpu_torch.models.pwclite_prob",
     "arflow_tpu_torch.models.pwclite_uflow",
+    "arflow_tpu_torch.native", "arflow_tpu_torch.data.device_aug",
+    "arflow_tpu_torch.utils.viz", "arflow_tpu_torch.utils.hostmem",
 ]
 
 
@@ -144,7 +148,9 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     them. Its orbax checkpoints stay with it, and saving one raises. The
     switches ported since (``remat``, ``nan_revert``, ``stage1``) train
     and take effect (``test_torch_train_switches.py`` holds them), and so
-    does ``optim: adamw`` (``test_torch_adamw.py``)."""
+    do ``optim: adamw`` (``test_torch_adamw.py``) and the uflow trainer's
+    ``photometric_aug.device`` (``test_torch_device_aug_train.py``); the
+    ELBO trainer refuses the latter and names the roadmap."""
     train = dict(TRAIN)
     full = {"model": CFG, "loss": LOSS}
     kwargs, valid = {}, None
@@ -174,7 +180,8 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
         trainer_name = "uflow_elbo"
         full["data"] = [{"type": "train",
                          "photometric_aug": {"hue": 0.5, "device": True}}]
-    ported = case in ("remat", "nan_revert", "stage1", "adamw")
+    ported = case in ("remat", "nan_revert", "stage1", "adamw",
+                      "device_photometric_aug")
     with (contextlib.nullcontext() if ported
           else pytest.raises(error, match=match)):
         if case == "loss_uflow_elbo":  # the opt-in Taylor warp
