@@ -8,8 +8,10 @@ Tensors come and go NHWC, as in the JAX package; the port's ops run NCHW
 inside. What the JAX package passes through ``stop_gradient`` is detached
 here: the images as warp sources and smoothness weights, and the masks.
 
-The per-sample warp is exact. The JAX package's opt-in Taylor warp
-(``taylor_warp``) is not ported and raises.
+The bidirectional data term warps each Monte-Carlo sample exactly, or,
+with the opt-in Taylor warp (``taylor_warp_enabled``), gathers once at the
+posterior mean (per component of a mixture) and linearizes each sample
+around it.
 
 The ARFlow blocks (``ternary_loss``, ``smooth_grad_1st``,
 ``smooth_grad_2nd``) take and return NCHW tensors, as the losses that
@@ -17,6 +19,8 @@ call them work inside.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -28,6 +32,7 @@ from arflow_tpu_torch.ops import (
     image_grads,
     mask_invalid,
     resample,
+    resample_with_grads,
     upsample,
 )
 from arflow_tpu_torch.ops.census import (
@@ -58,6 +63,23 @@ def _data_terms(data_loss, targets, recons, mask, num_groups=1, a_rep=1):
         pixel_loss.append(loss)
         pixel_weight.append(to_nhwc(weight))
     return pixel_loss, pixel_weight
+
+
+def taylor_warp_enabled(default: bool = False) -> bool:
+    """Whether the ELBO's Monte-Carlo samples take the Taylor warp: each
+    sample reconstructed as
+
+        resample(im, warp(mean)) + grad(im)|warp(mean) . (flow_s - mean)
+
+    from one gather at the posterior mean, with the interpolant's exact
+    within-cell partials (``ops.resample_with_grads``). First-order in the
+    sample's offset from the mean, exact while both lie in one 2x2 cell.
+    ``ARFLOW_TAYLOR_WARP=0/1`` overrides ``default`` (the loss's
+    ``taylor_warp``); it is read at each call."""
+    env = os.environ.get("ARFLOW_TAYLOR_WARP")
+    if env is not None:
+        return env == "1"
+    return default
 
 
 def _occlusion_2(flow_2):
@@ -109,9 +131,35 @@ def _tile_groups(x, n, groups=2):
         (groups * n * b,) + x.shape[1:])
 
 
+def _taylor_recons_mixture(src, mean_2, flow_0, z, n):
+    """Taylor-warp reconstructions of one direction's samples: ``src``
+    (B,C,H,W) the detached warp source, ``mean_2`` (B,h,w,2K) the means of
+    the posterior's K components at 1/4 resolution, ``flow_0`` (n*B,2,H,W)
+    the sampled flows at full resolution (sample-major), ``z`` (B,n) each
+    sample's drawn component. One ``resample_with_grads`` per component at
+    batch B; sample s of entry i reads the taps of component z[i, s] and
+    is linearized around that component's mean. A unimodal posterior is
+    its K = 1 case (2-channel means, ``z`` None): one gather at the
+    mean."""
+    bs, k = src.shape[0], mean_2.shape[-1] // 2
+    if z is None:
+        z = torch.zeros((bs, n), dtype=torch.long, device=src.device)
+    mean_0 = upsample(to_nchw(mean_2), is_flow=True, scale_factor=4.0)
+    means = mean_0.reshape((bs, k, 2) + mean_0.shape[2:])  # (B,K,2,H,W)
+    taps = [resample_with_grads(src, flow_to_warp(means[:, i]))
+            for i in range(k)]
+    zi = z.long().t().reshape(-1)  # row s*B + i: component z[i, s]
+    bi = torch.arange(bs, device=src.device).repeat(n)
+    base, gx, gy = (torch.stack(t, dim=1)[bi, zi] for t in zip(*taps))
+    delta = flow_0 - means[bi, zi]
+    return base + gx * delta[:, 0:1] + gy * delta[:, 1:2]
+
+
 def data_loss_no_penalty_bidir(im1_0, im2_0, flow12_2, flow21_2,
                                occ_type: str, data_loss, mean12_2=None,
-                               mean21_2=None, n_rep: int = 1):
+                               mean21_2=None, n_rep: int = 1,
+                               taylor_default: bool = False, z12=None,
+                               z21=None):
     """Both directions of ``data_loss_no_penalty`` as one batch [fw; bw].
 
     Images and means come un-tiled (batch B), the sampled flows tiled
@@ -121,17 +169,39 @@ def data_loss_no_penalty_bidir(im1_0, im2_0, flow12_2, flow21_2,
     for occ_type 'mean' the masks, which do not depend on the sample, are
     computed at B and tiled.
 
+    The Taylor warp (``taylor_warp_enabled(taylor_default)``) takes over
+    where there are several samples and means: 2-channel means, or a
+    mixture's 2K-channel means with the drawn components ``z12`` / ``z21``
+    ((B, n_rep) each). A mixture without them warps each sample exactly.
+    Out-of-image zero fill then follows the mean's warp; the validity mask
+    of occ_type 'sample' and 'none' still follows each sample's.
+
     Returns (pixel_loss_list, pixel_weight_list, occu_mask_2,
     valid_mask_0), each batched [fw; bw] at the flows' batch
     (``occu_mask_2`` None for 'none')."""
     n = n_rep
     im1_0, im2_0 = to_nchw(im1_0), to_nchw(im2_0)
     flow_2 = to_nchw(torch.cat([flow12_2, flow21_2], dim=0))
-    warp_0 = flow_to_warp(upsample(flow_2, is_flow=True, scale_factor=4.0))
-    # One sampler call for every sample of both directions.
-    sources = torch.cat([im2_0.detach().repeat(n, 1, 1, 1),
-                         im1_0.detach().repeat(n, 1, 1, 1)], dim=0)
-    recons = resample(sources, warp_0)
+    flow_0 = upsample(flow_2, is_flow=True, scale_factor=4.0)
+    warp_0 = flow_to_warp(flow_0)
+    im1_sg, im2_sg = im1_0.detach(), im2_0.detach()
+    taylor = (n > 1 and mean12_2 is not None
+              and taylor_warp_enabled(taylor_default)
+              and (mean12_2.shape[-1] == 2
+                   or (z12 is not None and z21 is not None)))
+    if taylor:
+        b = flow12_2.shape[0]
+        if mean12_2.shape[-1] == 2:  # one component: no draws to read
+            z12 = z21 = None
+        recons = torch.cat([
+            _taylor_recons_mixture(im2_sg, mean12_2, flow_0[:b], z12, n),
+            _taylor_recons_mixture(im1_sg, mean21_2, flow_0[b:], z21, n),
+        ], dim=0)
+    else:
+        # One sampler call for every sample of both directions.
+        sources = torch.cat([im2_sg.repeat(n, 1, 1, 1),
+                             im1_sg.repeat(n, 1, 1, 1)], dim=0)
+        recons = resample(sources, warp_0)
     targets = torch.cat([im1_0, im2_0], dim=0)
 
     occu_mask_2 = None

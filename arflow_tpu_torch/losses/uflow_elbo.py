@@ -33,10 +33,13 @@ and with ``isotropic_smooth`` the smoothness mean pairs every batch entry's
 weights with every entry's penalties (the reference's (B, B, H, W')
 broadcast) unless ``fix_isotropic_broadcast`` is set. It raises where the
 JAX loss raises (``sparse`` with ``inv_cov``, ``mixture`` with
-``inv_cov``, ``natural_grad``, ``closed_form_smooth`` without ``diag``),
-and on what the port has not taken over: ``taylor_warp``; it raises when
-it is built, where the JAX loss raises when called. An ``ssim`` data term
-is its two distances, each penalized and summed.
+``inv_cov``, ``natural_grad``, ``closed_form_smooth`` without ``diag``);
+it raises when it is built, where the JAX loss raises when called. An
+``ssim`` data term is its two distances, each penalized and summed.
+``taylor_warp`` (or ``ARFLOW_TAYLOR_WARP=1``, read at each call) warps the
+samples of the bidirectional data term by the Taylor warp
+(``losses/blocks.py:taylor_warp_enabled``), a mixture's around the drawn
+components.
 """
 
 from __future__ import annotations
@@ -61,11 +64,6 @@ from arflow_tpu_torch.parallel.mesh import (
     world_size,
 )
 from arflow_tpu_torch.utils.gmm import gaussian_mixture_log_pdf
-
-TAYLOR_NOT_PORTED = (
-    "loss.taylor_warp is not ported yet: ROADMAP.md queue 1, 'the "
-    "probabilistic UFlow path' (the Taylor warp); the port warps each "
-    "sample exactly")
 
 
 def _drawable(weights: torch.Tensor) -> torch.Tensor:
@@ -181,6 +179,7 @@ class UFlowElboLoss:
 
         # -- reparametrization --------------------------------------------
         flow_shape = (n * b, h2, w2, 2)
+        z12 = z21 = None
         if cfg.approx == "diag":
             eps12, eps21 = normal("eps12", flow_shape), normal("eps21", flow_shape)
             sign = -1.0 if cfg.inv_cov else 1.0
@@ -257,7 +256,8 @@ class UFlowElboLoss:
             nb = flow12_2.shape[0]
             pl, pw, occu_mask_b, valid_mask_b = data_loss_no_penalty_bidir(
                 im1_0, im2_0, flow12_2, flow21_2, cfg.occ_type, cfg.data_loss,
-                mean12_2, mean21_2, n_rep=n)
+                mean12_2, mean21_2, n_rep=n,
+                taylor_default=cfg.get("taylor_warp", False), z12=z12, z21=z21)
             occu_mask12 = None if occu_mask_b is None else occu_mask_b[:nb]
             occu_mask21 = None if occu_mask_b is None else occu_mask_b[nb:]
             valid_mask12 = valid_mask_b[:nb]
@@ -362,10 +362,7 @@ class UFlowElboLoss:
 
 
 def _refuse(cfg):
-    """Raise, at construction, on what the JAX loss raises on when called
-    and on what the port has not taken over."""
-    if cfg.get("taylor_warp", False):
-        raise NotImplementedError(TAYLOR_NOT_PORTED)
+    """Raise, at construction, on what the JAX loss raises on when called."""
     if cfg.get("natural_grad", False):
         raise NotImplementedError(
             "Natural gradient is not implemented! (nor in the JAX package)")

@@ -30,9 +30,11 @@ from arflow_tpu_torch.ops.resize import (  # noqa: F401
 )
 from arflow_tpu_torch.ops.ssim import ssim_dist, ssim_loss  # noqa: F401
 from arflow_tpu_torch.ops.warp import (  # noqa: F401
+    bilinear_gather_with_grads,
     border_mask,
     flow_to_warp,
     flow_warp,
     mask_invalid,
     resample,
+    resample_with_grads,
 )

@@ -9,6 +9,11 @@ padding_mode='zeros')``. The JAX package writes it as a packed gather; here
 it is ``F.grid_sample`` itself, since the JAX side is plain XLA and not a
 Pallas kernel. ``flow_warp`` is the PWC-Lite family's warp, with zeros or
 border padding and both ``align_corners`` conventions.
+
+``bilinear_gather_with_grads`` / ``resample_with_grads`` sample the same
+interpolant and also return its exact within-cell partials in x and y, all
+from one gather of the four taps (the ELBO's Taylor warp,
+``losses/blocks.py``).
 """
 
 from __future__ import annotations
@@ -80,6 +85,78 @@ def resample(source: torch.Tensor, coords: torch.Tensor,
     return F.grid_sample(
         source, grid, mode="bilinear", padding_mode=padding, align_corners=True
     )
+
+
+def _gather_taps(source, x, y, padding="zeros"):
+    """The 2x2 neighbourhood of each point (x, y) (B,Hq,Wq) in ``source``
+    (B,C,H,W), from one gather: taps (B,4C,Hq,Wq) ordered (y0,x0),
+    (y0,x1), (y1,x0), (y1,x1); x and y after the border clamp, their
+    floors, and the zeros padding's whole-sample mask (None for border).
+
+    Zeros padding packs over a zero-padded (H+2, W+2) canvas, so that the
+    window of any x0 in [-1, W-1] is addressable, and a point outside
+    [-1, W) x [-1, H) reads nothing (the mask). Border padding clamps the
+    point into the image and pads one edge copy at the bottom and right.
+    A NaN point reads the canvas's corner, and its weights carry the NaN
+    into the result, as the JAX gather's do."""
+    b, c, h, w = source.shape
+    if padding == "border":
+        x, y = x.clamp(0.0, w - 1.0), y.clamp(0.0, h - 1.0)
+        canvas = F.pad(source, (0, 1, 0, 1), mode="replicate")
+        x0, y0 = torch.floor(x), torch.floor(y)
+        ix, iy = x0.nan_to_num(0.0).long(), y0.nan_to_num(0.0).long()
+        mask = None
+    else:
+        canvas = F.pad(source, (1, 1, 1, 1))
+        x0, y0 = torch.floor(x), torch.floor(y)
+        ix = (x0.nan_to_num(-1.0).clamp(-1, w - 1) + 1).long()
+        iy = (y0.nan_to_num(-1.0).clamp(-1, h - 1) + 1).long()
+        mask = ((x >= -1.0) & (x < w) & (y >= -1.0)
+                & (y < h)).to(source.dtype).unsqueeze(1)
+    packed = torch.cat([canvas[:, :, :-1, :-1], canvas[:, :, :-1, 1:],
+                        canvas[:, :, 1:, :-1], canvas[:, :, 1:, 1:]], dim=1)
+    ph, pw = packed.shape[-2:]
+    idx = (iy * pw + ix).reshape(b, 1, -1).expand(b, 4 * c, -1)
+    taps = packed.reshape(b, 4 * c, ph * pw).gather(2, idx)
+    return taps.reshape((b, 4 * c) + x.shape[1:]), x, y, x0, y0, mask
+
+
+def bilinear_gather_with_grads(source: torch.Tensor, x: torch.Tensor,
+                               y: torch.Tensor, padding: str = "zeros"):
+    """Bilinear sample of ``source`` (B,C,H,W) at pixel coordinates x, y
+    (B,Hq,Wq), with the interpolant's partials in x and y:
+    ``(value, gx, gy)``, each (B,C,Hq,Wq). Within a 2x2 cell the
+    interpolant is bilinear, so
+
+        gx = wy0 (t01 - t00) + wy1 (t11 - t10)
+        gy = wx0 (t10 - t00) + wx1 (t11 - t01)
+
+    are its exact derivatives there, from the taps the value reads. At an
+    integer coordinate the cell is the one to its right (below), as
+    ``floor`` picks it. Gradients reach x and y through the weights; a
+    bfloat16 ``source`` is sampled in float32 and the results cast back."""
+    if source.dtype == torch.bfloat16:
+        out = bilinear_gather_with_grads(source.to(torch.float32),
+                                         x.to(torch.float32),
+                                         y.to(torch.float32), padding)
+        return tuple(t.to(torch.bfloat16) for t in out)
+    c = source.shape[1]
+    taps, x, y, x0, y0, mask = _gather_taps(source, x, y, padding)
+    t00, t01, t10, t11 = taps.split(c, dim=1)
+    wx1, wy1 = (x - x0).unsqueeze(1), (y - y0).unsqueeze(1)
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    val = wy0 * (wx0 * t00 + wx1 * t01) + wy1 * (wx0 * t10 + wx1 * t11)
+    gx = wy0 * (t01 - t00) + wy1 * (t11 - t10)
+    gy = wx0 * (t10 - t00) + wx1 * (t11 - t01)
+    if mask is not None:
+        val, gx, gy = val * mask, gx * mask, gy * mask
+    return val, gx, gy
+
+
+def resample_with_grads(source: torch.Tensor, coords: torch.Tensor):
+    """``resample`` (zeros padding) with the interpolant's exact partials:
+    ``bilinear_gather_with_grads`` at ``coords`` (B,2,Hq,Wq)."""
+    return bilinear_gather_with_grads(source, coords[:, 0], coords[:, 1])
 
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor, pad: str = "zeros",

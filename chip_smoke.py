@@ -19,7 +19,12 @@ on a Sintel-format tree; and ELBO training of that model: both kernels
 at the ELBO step's level shapes, one step of four shipped ELBO setups
 against the plain cost volume and float64, steps through
 ``UFlowElboTrainer``, and ``train_main`` with chairs_uflow_elbo.json with
-validation, a resume and an overfit check; training of the mixture
+validation, a resume and an overfit check; the ELBO's Taylor warp
+(phase taylor_warp: setups (b), (d) and (e) with ``taylor_warp``, one step
+each against the plain cost volume and float64, steps through
+``UFlowElboTrainer``, the step time beside the exact warp's in turns and
+setup (b)'s warp device time in each mode, a bf16 step, and ``tools/taylor_compare.py``'s
+two 300-step runs); training of the mixture
 weights net (chairs_uflow_elbo_mixture.json) and supervised MSE training
 (chairs_uflow_mse.json at 384x512 b16): one step each against the plain
 cost volume and float64, steps through their trainers, ``train_main`` with
@@ -73,7 +78,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 
 With ``--overfit-spread`` it runs only ``overfit_spread``: the
 ``pwclite_cli`` phase's overfit, repeated under several choices of the
-card's algorithms.
+card's algorithms, at the config's learning rate and at the check's.
 
 Imports nothing of JAX or of ``arflow_tpu``.
 """
@@ -2378,6 +2383,177 @@ def step_time(phase, one_step, batch, shape, smi, labels=None, ranges=None,
     return prof
 
 
+# The Taylor warp (loss.taylor_warp) on the ELBO setups with several
+# samples: (b) and (d) draw 4, (e) 6; (a) draws one, where the gate is off.
+TAYLOR_SETUPS = ("b", "d", "e")
+TAYLOR_PROFILED = "b"
+TAYLOR_COMPARE_STEPS = 300
+
+
+def taylor_config(name, overrides, on):
+    cfg = prob_config(name, overrides)
+    cfg.loss.update(taylor_warp=on)
+    return cfg
+
+
+def phase_taylor_warp(dev, smi):
+    """The ELBO's Taylor warp (``losses/blocks.py``) on the card, with the
+    environment's ``ARFLOW_TAYLOR_WARP`` set aside so that the config
+    decides. For setups (b), (d) and (e) at 256x448 b4: one step with
+    ``taylor_warp`` against the plain cost volume and float64
+    (``step_check``, the ELBO step's bounds); the loss's gap to the exact
+    warp's on the same outputs and draws; ELBO_STEPS Taylor steps through
+    ``UFlowElboTrainer.train()`` with the launches counted (``phase_elbo_train``
+    already trains the exact warp); the device ms per step, Taylor beside
+    exact in turns (CUDA events); and for TAYLOR_PROFILED alone, each mode's
+    profile with the warp's device time (the exact warp's ``grid_sample``
+    and its backward, the Taylor gather and linearization). Then one bf16
+    step of (b) with the Taylor warp, which must be finite, and
+    ``tools/taylor_compare.py``'s TAYLOR_COMPARE_STEPS + TAYLOR_COMPARE_STEPS
+    steps, which must stay finite (its 0.05 px band is a training outcome
+    and is reported, not enforced). Returns the cost-volume launches per
+    part."""
+    from arflow_tpu_torch.tools import taylor_compare
+
+    log = logging.getLogger("chip_smoke")
+    launches, failures = {}, []
+    env = os.environ.pop("ARFLOW_TAYLOR_WARP", None)
+    warp_ranges = {"warp_exact": (elbo_blocks_module, "resample"),
+                   "warp_taylor": (elbo_blocks_module, "_taylor_recons_mixture")}
+    try:
+        for key, name, overrides in ELBO_SETUPS:
+            if key not in TAYLOR_SETUPS:
+                continue
+            gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+            cfgs = {on: taylor_config(name, overrides, on) for on in (True, False)}
+            cfg = cfgs[True]
+            losses = {on: get_loss(c.loss) for on, c in cfgs.items()}
+            models = {on: get_model(cfg.model, device=dev, seed=SEED)
+                      for on in (True, False)}
+            batches = []
+            for dy, dx in ((1, 2), (2, -3), (-3, 1)):
+                a, b = shifted_pair(EB, EH, EW, dy, dx, gen, dev)
+                batches.append({"img1": a, "img2": b})
+            noise = elbo_noise(cfg.loss, EB, EH // 4, EW // 4, gen, dev)
+            x = batches[0]
+
+            def forward_loss(net, inputs, draws, train):
+                res = net(inputs["img1"], inputs["img2"], with_bk=True, train=train)
+                return losses[True](res, inputs["img1"], inputs["img2"], noise=draws)
+
+            failure = step_check(
+                forward_loss, models[True], x, noise,
+                {"phase": "taylor_warp_step_check", "setup": key, "config": name,
+                 "approx": cfg.loss.approx, "n_samples": cfg.loss.n_samples,
+                 "shape": [EB, EH, EW]})
+            if failure:
+                failures.append(failure)
+            with torch.no_grad():
+                res = models[True](x["img1"], x["img2"], with_bk=True)
+                gap = {on: float(losses[on](res, x["img1"], x["img2"],
+                                            noise=noise)["total"])
+                       for on in (True, False)}
+
+            train_cfg = cfg.train.copy()
+            train_cfg.update(epoch_num=1, seed=SEED)
+            trainers = {on: RecordingElboTrainer(
+                [batches[i % len(batches)] for i in range(ELBO_STEPS)], None,
+                models[on], losses[on], log,
+                os.path.join(REPO, "outputs", "chip_smoke"), train_cfg,
+                model_cfg=cfg.model, full_cfg=cfgs[on]) for on in (True, False)}
+            trainers[False]._ensure_init()  # stepped only by timed_pair
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            trainers[True].train()
+            torch.cuda.synchronize()
+            launches[key] = {k.name: k.launches for k in KERNELS}
+            rows = torch.stack(trainers[True].rows).cpu()
+            want = 4 * ELBO_STEPS
+            if launches[key] != {"cost_volume": want, "cost_volume_bwd": want}:
+                raise AssertionError(f"taylor ({key}) {ELBO_STEPS} steps launched "
+                                     f"{launches[key]}, not {want} + {want}")
+            if not bool(torch.isfinite(rows).all()):
+                raise AssertionError(f"taylor ({key}) non-finite training metrics")
+
+            steps = {on: (lambda t=t: t.train_step(x["img1"], x["img2"]))
+                     for on, t in trainers.items()}
+            ms_exact, ms_taylor, turns = timed_pair(steps[False], steps[True],
+                                                    iters=ELBO_STEPS)
+            warp_ms = {}
+            if key == TAYLOR_PROFILED:
+                census = (elbo_blocks_module, "census_loss_no_penalty")
+                prof = {on: train_step_profile(steps[on],
+                                               ms_taylor if on else ms_exact,
+                                               census=census, ranges=warp_ranges)
+                        for on in (False, True)}
+                warp_ms = {
+                    "warp_device_ms_exact": prof[False]["warp_exact_ms"]
+                    + prof[False]["grid_sample_bwd_ms"],
+                    "warp_device_ms_taylor": prof[True]["warp_taylor_ms"]
+                    + prof[True]["grid_sample_bwd_ms"],
+                    "device_ms_exact": prof[False]["device_ms_per_call"],
+                    "device_ms_taylor": prof[True]["device_ms_per_call"]}
+                for on, mode in ((False, "exact"), (True, "taylor")):
+                    emit({"phase": "taylor_warp_profile", "setup": key, "mode": mode,
+                          "shape": [EB, EH, EW], **prof[on], "card": smi})
+            emit({"phase": "taylor_warp", "setup": key, "config": name,
+                  "approx": cfg.loss.approx, "n_samples": cfg.loss.n_samples,
+                  "shape": [EB, EH, EW], "launches": launches[key],
+                  "loss_taylor": gap[True], "loss_exact": gap[False],
+                  "loss_rel_gap": abs(gap[True] - gap[False]) / abs(gap[False]),
+                  "losses_taylor": rows[:, 0].tolist(),
+                  "ms_per_step_exact": ms_exact, "ms_per_step_taylor": ms_taylor,
+                  "ms_turns_exact_taylor_taylor_exact": turns,
+                  "step_speedup": ms_exact / ms_taylor, **warp_ms, "card": smi})
+            del trainers, models, losses
+
+        cfg = taylor_config(*ELBO_SETUPS[1][1:], True)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        a, b = shifted_pair(EB, EH, EW, 1, 2, gen, dev)
+        noise = elbo_noise(cfg.loss, EB, EH // 4, EW // 4, gen, dev)
+        loss = get_loss(cfg.loss)
+        m32 = get_model(cfg.model, device=dev, seed=SEED)
+        m16 = get_model(bf16_model_cfg(cfg.model), device=dev)
+        m16.load_state_dict(m32.state_dict(), strict=True)
+
+        def elbo_loss(net, g):
+            return loss(net(a, b, with_bk=True, train=True, generator=g), a, b,
+                        noise=noise)
+
+        state = torch.Generator(device=dev).manual_seed(SEED).get_state()
+        loss32, g32 = step_gradients(m32, elbo_loss, state, dev)
+        reset_launch_counts()
+        loss16, g16 = step_gradients(m16, elbo_loss, state, dev)
+        launches["bf16_b"] = {k.name: k.launches for k in KERNELS}
+        finite = bool(np.isfinite(loss16)) and all(
+            bool(torch.isfinite(g).all()) for g in g16.values())
+        emit({"phase": "taylor_warp_bf16", "setup": "b", "shape": [EB, EH, EW],
+              "launches": launches["bf16_b"], "loss_f32": loss32,
+              "loss_bf16": loss16, "loss_rel_gap": abs(loss16 - loss32) / abs(loss32),
+              "grad_cosine": cosine(flat(g16), flat(g32)), "finite": finite,
+              "card": smi})
+        if not finite:
+            failures.append(f"taylor bf16 (b): loss {loss16}, non-finite gradients")
+        del m32, m16
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = taylor_compare.compare(TAYLOR_COMPARE_STEPS, dev)
+        torch.cuda.synchronize()
+        launches["compare"] = {k.name: k.launches for k in KERNELS}
+        emit({"phase": "taylor_compare", **out, "seconds": time.perf_counter() - t0,
+              "launches": launches["compare"], "card": smi})
+        if not np.isfinite(out["epe_exact"] + out["epe_taylor"] + out["epe_true_exact"]
+                           + out["epe_true_taylor"]).all():
+            failures.append("taylor_compare: non-finite EPE")
+    finally:
+        if env is not None:
+            os.environ["ARFLOW_TAYLOR_WARP"] = env
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def elbo_cli_config(root, save_root, epochs, resume=None, track_auc=False):
     """``configs/chairs_uflow_elbo.json`` with both data roots at ``root``,
     ``epochs`` epochs of 3 steps that each validate (with ``track_auc`` if
@@ -4165,6 +4341,12 @@ PWCLITE_TRAIN_SETUPS = (
 )
 PWCLITE_TRAIN_STEPS = 10
 PWCLITE_OVERFIT_STEPS = 20
+# The overfit's learning rate. AdamW's first step moves every weight by
+# lr * sign(g), whatever the implementation: at the config's 2e-4 it takes
+# the mean flow from 44 to 467 px, and where the run ends after that
+# depends on the rounding (NaN, stuck at 1.4-1.6, or 0.27). At 2e-5 each
+# choice of algorithms ends at the same loss (``--overfit-spread``).
+PWCLITE_OVERFIT_LR = 2e-5
 
 
 def pwclite_train_config(model, loss, root=None, save_root=None, epochs=1,
@@ -4352,9 +4534,9 @@ def phase_pwclite_cli(dev, smi):
     256x448, b8): 2 epochs of 3 steps with validation EPE and both
     checkpoints, a resume restoring weights, the AdamW moments and steps,
     the schedule count and the counters bit for bit; then
-    PWCLITE_OVERFIT_STEPS steps on one fixed unaugmented batch must lower
-    its loss (each step's loss and mean flow are printed beside it). Under
-    ``PerSampleDraws``, as the cli phase."""
+    PWCLITE_OVERFIT_STEPS steps at PWCLITE_OVERFIT_LR on one fixed
+    unaugmented batch must lower its loss (each step's loss and mean flow
+    are printed beside it). Under ``PerSampleDraws``, as the cli phase."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_pwclite_cli_")
     log = logging.getLogger("chip_smoke")
     try:
@@ -4379,7 +4561,8 @@ def phase_pwclite_cli(dev, smi):
         model = get_model(cfg.model, device=dev, seed=SEED)
         loss_func = get_loss(cfg.loss)
         before = fixed_batch_loss(model, loss_func, img1, img2)
-        cfg.train.update(epoch_num=1, epoch_size=PWCLITE_OVERFIT_STEPS)
+        cfg.train.update(epoch_num=1, epoch_size=PWCLITE_OVERFIT_STEPS,
+                         lr=PWCLITE_OVERFIT_LR)
         trainer = RecordingTrainer([{"img1": img1, "img2": img2}] * PWCLITE_OVERFIT_STEPS,
                                    None, model, loss_func, log, cfg.save_root,
                                    cfg.train, model_cfg=cfg.model, full_cfg=cfg)
@@ -4387,7 +4570,7 @@ def phase_pwclite_cli(dev, smi):
         after = fixed_batch_loss(model, loss_func, img1, img2)
         rows = torch.stack(trainer.rows).cpu().numpy()
         emit({"phase": "pwclite_cli_overfit", "batch": [TB, CH, CW],
-              "steps": trainer.i_iter, "loss_untrained": before,
+              "steps": trainer.i_iter, "lr": PWCLITE_OVERFIT_LR, "loss_untrained": before,
               "loss_after": after, "step_losses": rows[:, 0].tolist(),
               "step_flow_means": rows[:, -1].tolist()})
         if trainer.i_iter != PWCLITE_OVERFIT_STEPS or not (
@@ -4986,6 +5169,7 @@ def phase_jax_resume(cfg, dev, smi):
 
 SPREAD_REPEATS = {"default": 4, "det": 2, "cudnn_det": 2, "torch_det_nofill": 2,
                   "plain_cv": 2}
+SPREAD_LRS = (PWCLITE_ADAMW["lr"], PWCLITE_OVERFIT_LR)
 
 
 @contextlib.contextmanager
@@ -5049,7 +5233,8 @@ def overfit_spread(dev, variants) -> None:
     """Where the ``pwclite_cli`` overfit (``PWCLITE_OVERFIT_STEPS`` AdamW
     steps of ``UFlowTrainer`` on one fixed 384x512 b8 batch of the cli
     phase's tree) ends, run after run, for each of ``variants``
-    (``SPREAD_REPEATS`` runs each): one JSON line per run, after one with
+    (``SPREAD_REPEATS`` runs each) at each of ``SPREAD_LRS``, the config's
+    learning rate and the check's: one JSON line per run, after one with
     the relative L2 gap of the first step's gradient between two repeats
     of ``default``, ``det`` and ``plain_cv`` and between the modes."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_overfit_spread_")
@@ -5067,10 +5252,13 @@ def overfit_spread(dev, variants) -> None:
               **{f"{v}_repeat": rel_l2(*g[v]) for v in g},
               "default_vs_det": rel_l2(g["default"][0], g["det"][0]),
               "plain_cv_vs_det": rel_l2(g["plain_cv"][0], g["det"][0])})
-        for variant in variants:
-            for rep in range(SPREAD_REPEATS[variant]):
-                emit({"phase": "overfit", "variant": variant, "rep": rep,
-                      **spread_overfit(variant, cfg, img1, img2, dev)})
+        for lr in SPREAD_LRS:
+            cfg.train.lr = lr
+            for variant in variants:
+                for rep in range(SPREAD_REPEATS[variant]):
+                    emit({"phase": "overfit", "lr": lr, "variant": variant,
+                          "rep": rep,
+                          **spread_overfit(variant, cfg, img1, img2, dev)})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5122,6 +5310,7 @@ def main() -> int:
     elbo_cli_launches = timed("elbo_cli", phase_elbo_cli, dev, smi)
     elbo_launches = timed("elbo_train", phase_elbo_train, dev, smi)
     elbo_launches["cli"] = elbo_cli_launches
+    taylor_launches = timed("taylor_warp", phase_taylor_warp, dev, smi)
     mse_err, mse_rows, mse_grad_err, mse_grad_rows = timed(
         "mse_kernels", phase_mse_kernels, dev, smi)
     mixture_launches = {"train": timed("mixture_train", phase_mixture_train, dev, smi),
@@ -5202,6 +5391,11 @@ def main() -> int:
         # 256x448 b4 and train_main's 6 steps and 2 validations; one
         # forward's worth at the ELBO levels, batch 8 and 16.
         "launches_elbo": {k: v["cost_volume"] for k, v in elbo_launches.items()},
+        # The Taylor warp (phase taylor_warp): ELBO_STEPS steps of setups
+        # (b), (d) and (e) with taylor_warp at 256x448 b4, one bf16 step of
+        # (b), and taylor_compare's two runs of 300 steps and their EPEs at
+        # 128x160 b4.
+        "launches_taylor": {k: v["cost_volume"] for k, v in taylor_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in elbo_rows[key])
            for key in elbo_rows for what in ("ms", "plain_ms", "bound_ms")},
         # The mixture weights net's ELBO training (ELBO_STEPS steps and
@@ -5266,6 +5460,8 @@ def main() -> int:
         "launches_input_path": {k: v["cost_volume_bwd"]
                                 for k, v in input_launches.items()},
         "launches_elbo": {k: v["cost_volume_bwd"] for k, v in elbo_launches.items()},
+        "launches_taylor": {k: v["cost_volume_bwd"]
+                            for k, v in taylor_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in elbo_grad_rows[key])
            for key in elbo_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
         "launches_mixture": {k: v["cost_volume_bwd"]

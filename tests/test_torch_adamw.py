@@ -27,6 +27,7 @@ from arflow_tpu.training.optim import create_optimizer as jax_create_optimizer
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.training.optim import ReferenceAdamW, create_optimizer
 from test_torch_optim import SHAPES, STEPS_PER_EPOCH, Net, _to_torch
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 N_STEPS = 30
 CFG = {"optim": "adamw", "lr": 1e-3, "lr_decay_start_epoch": 2,

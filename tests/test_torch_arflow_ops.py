@@ -24,6 +24,7 @@ import arflow_tpu.losses.blocks as jax_blocks
 import arflow_tpu.ops as jax_ops
 import arflow_tpu_torch.losses.blocks as blocks
 import arflow_tpu_torch.ops as ops
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 B, H, W = 2, 24, 40
 # Same float64 math on both sides, summed in other orders.

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from arflow_tpu import ops as jops
 from arflow_tpu_torch import ops as tops
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 
 def _t(x_nhwc, grad=False):

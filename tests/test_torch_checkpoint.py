@@ -16,7 +16,7 @@ from arflow_tpu_torch.losses import get_loss
 from arflow_tpu_torch.models import get_model, load_pretrained
 from arflow_tpu_torch.training import get_trainer
 from arflow_tpu_torch.training.checkpoint import load_checkpoint
-from torch_data_util import make_chairs_dir
+from torch_data_util import few_torch_threads, make_chairs_dir  # noqa: F401
 
 H, W = 64, 96
 log = logging.getLogger("test")
@@ -28,14 +28,6 @@ TRAIN = {"batch_size": 2, "epoch_num": 2, "epoch_size": 1000, "valid_size": 0,
          "beta2": 0.999, "eps": 1e-8, "weight_decay": 0.0, "bias_decay": 0.0,
          "lr_decay_start_epoch": 1, "lr_decay_factor": 0.5, "print_freq": 1,
          "record_freq": 1, "save_iter": 0, "workers": 2, "clip": -1.0}
-
-
-@pytest.fixture(autouse=True)
-def few_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _trainer(save_root, **train):

@@ -18,20 +18,16 @@ from arflow_tpu_torch.data import Chairs
 from arflow_tpu_torch.models import get_model
 from arflow_tpu_torch.ops.cuda import KERNELS
 from arflow_tpu_torch.utils.flow_io import read_flo
-from torch_data_util import make_chairs_dir, make_shifted_chairs_dir
+from torch_data_util import (  # noqa: F401  (few_torch_threads: fixture)
+    few_torch_threads,
+    make_chairs_dir,
+    make_shifted_chairs_dir,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "chairs_uflow.json")
 H, W = 64, 96
 log = logging.getLogger("test")
-
-
-@pytest.fixture(autouse=True)
-def few_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def chairs_cfg(root, save_root, **train):

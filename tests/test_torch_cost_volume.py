@@ -30,6 +30,7 @@ from arflow_tpu_torch.ops.cuda.cost_volume import (
     cost_volume_grad_kernel,
     cost_volume_kernel,
 )
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 # Shapes (B,H,W,C), md: those of tests/test_cost_volume_pallas.py, the
 # UFlow level shape (C=32, md=4) and a map smaller than md.

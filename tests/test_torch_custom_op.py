@@ -19,17 +19,10 @@ from arflow_tpu_torch.ops.cuda.cost_volume import (
     compute_cost_volume_reference,
     cost_volume_grad_reference,
 )
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 CV = torch.ops.arflow.cost_volume.default
 CV_BWD = torch.ops.arflow.cost_volume_bwd.default
-
-
-@pytest.fixture(autouse=True)
-def few_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(shape, seed, dtype=torch.float64, grad=False):

@@ -31,7 +31,11 @@ from arflow_tpu_torch.data import transforms as tf
 from arflow_tpu_torch.data.loader import DataLoader, InMemoryDataset
 from arflow_tpu_torch.ops.resize import _resize_matrix
 from arflow_tpu_torch.utils import flow_io
-from torch_data_util import make_chairs_dir, write_ppm
+from torch_data_util import (  # noqa: F401  (few_torch_threads: fixture)
+    few_torch_threads,
+    make_chairs_dir,
+    write_ppm,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,7 +22,7 @@ import torch
 
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.models import get_model
-from torch_data_util import make_chairs_dir
+from torch_data_util import few_torch_threads, make_chairs_dir  # noqa: F401
 from torch_ddp_util import Processes, Ranks, free_port, train_case
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

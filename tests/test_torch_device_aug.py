@@ -23,6 +23,7 @@ from arflow_tpu_torch.data.device_aug import (
     device_photometric_cfg,
     make_photometric,
 )
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 FULL_CFG = {"brightness": 0.3, "contrast": 0.3, "saturation": 0.3,
             "hue": 0.5, "gamma": 1, "swap_channels": True}

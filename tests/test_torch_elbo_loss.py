@@ -41,6 +41,7 @@ from torch_elbo_util import (
     model_outputs,
     port_loss,
 )
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 CASES = {
     # chairs_uflow_elbo.json: closed form of order 1 with the isotropic
@@ -178,13 +179,21 @@ def test_refusals_as_the_jax_loss(overrides, match, monkeypatch):
 
 
 def test_refusals_of_what_is_not_ported(monkeypatch):
-    """The Taylor warp raises and names its roadmap item; the ssim data
-    term, ported since, computes as the JAX one does (beside census, each
-    with its penalty); a config that names its loss with ``name``
-    (chairs_uflow_elbo.json) builds."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*Taylor warp"):
-        get_loss(Config(dict(BASE, taylor_warp=True)))
+    """What was refused before it was ported now runs. The Taylor warp
+    (``taylor_warp``, ported since) builds and runs: with two samples it
+    moves the loss off the exact warp's, and ``ARFLOW_TAYLOR_WARP=0``
+    brings the exact warp back (``test_torch_taylor_*.py`` hold it to the
+    JAX loss). The ssim data term computes as the JAX one does (beside
+    census, each with its penalty); a config that names its loss with
+    ``name`` (chairs_uflow_elbo.json) builds."""
+    monkeypatch.delenv("ARFLOW_TAYLOR_WARP", raising=False)
+    cfg = dict(BASE, n_samples=2, occ_type="mean")
+    args = inputs(cfg, seed=4)
+    exact = float(port_loss(cfg, *args)[0]["total"])
+    taylor = port_loss(dict(cfg, taylor_warp=True), *args)[0]
+    assert np.isfinite(float(taylor["total"])) and float(taylor["total"]) != exact
     monkeypatch.setenv("ARFLOW_TAYLOR_WARP", "0")
+    assert float(port_loss(dict(cfg, taylor_warp=True), *args)[0]["total"]) == exact
     check_case(dict(BASE, data_loss=["census", "ssim"], data_weight=[1.0, 0.5],
                     data_penalty=["abs_robust_loss", "charbonnier"]), seed=5)
     named = {k: v for k, v in BASE.items() if k != "type"}

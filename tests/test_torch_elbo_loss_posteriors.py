@@ -9,6 +9,7 @@ gradients of the total (``tests/torch_elbo_util.py:check_case``). The
 import pytest
 
 from torch_elbo_util import BASE, GMM, check_case
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 CASES = {
     "sparse_k1_n2_occ_none": {"approx": "sparse", "cov_supp": 1,

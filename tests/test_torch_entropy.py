@@ -16,6 +16,7 @@ from arflow_tpu.utils import gmm as jax_gmm
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.training.entropy import extract_uv_entropy
 from arflow_tpu_torch.utils import gmm
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 B, H2, W2 = 2, 8, 12
 H, W = 4 * H2, 4 * W2

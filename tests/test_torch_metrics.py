@@ -15,6 +15,7 @@ from arflow_tpu_torch.losses import get_loss
 from arflow_tpu_torch.models import get_model
 from arflow_tpu_torch.training import get_trainer
 from arflow_tpu_torch.utils import metrics
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 # Predictions at the ground truth's size go through the same numpy on both
 # sides, bit for bit. Resized ones go through the port's 2-tap numpy resize

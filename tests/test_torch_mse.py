@@ -18,6 +18,7 @@ from arflow_tpu.ops import resize_flow as jax_resize_flow
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.losses import MseLoss, get_loss
 from arflow_tpu_torch.ops import resize_flow
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 B, H, W = 2, 32, 48
 TERMS = ("total", "l_mse", "entropy", "l_offdiag")

@@ -22,7 +22,7 @@ from arflow_tpu_torch import native
 from arflow_tpu_torch.data import datasets
 from arflow_tpu_torch.data import transforms as tf
 from arflow_tpu_torch.utils import flow_io
-from torch_data_util import write_ppm
+from torch_data_util import few_torch_threads, write_ppm  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,7 @@ from arflow_tpu.config import Config as JaxConfig
 from arflow_tpu.training.optim import create_optimizer as jax_create_optimizer
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.training.optim import create_optimizer
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 STEPS_PER_EPOCH = 10
 N_STEPS = 50

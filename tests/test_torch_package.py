@@ -4,6 +4,7 @@ CUDA device and raise without one instead of running on the CPU, and what
 it does not port yet raises and names the roadmap item."""
 
 import contextlib
+import json
 import logging
 import os
 import subprocess
@@ -19,17 +20,11 @@ from arflow_tpu_torch.models import get_model
 from arflow_tpu_torch.parallel import make_mesh, make_spatial_mesh
 from arflow_tpu_torch.serving import StreamingFlowEngine
 from arflow_tpu_torch.training import get_trainer
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(autouse=True)
-def few_torch_threads():
-    """Two torch threads: the test lane runs several processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 CFG = {"type": "uflow", "feature_norm": True}
 
 _CHECK = r"""
@@ -137,6 +132,25 @@ def _batch(flow=False):
     return b
 
 
+def _taylor_elbo_step():
+    """chairs_uflow_elbo_nondiag.json's ELBO loss with ``taylor_warp``
+    builds, and one call on random level-2 outputs gives a finite total
+    and flow gradients."""
+    with open(os.path.join(REPO, "configs", "chairs_uflow_elbo_nondiag.json")) as f:
+        cfg = json.load(f)["loss"]
+    loss = get_loss(Config(dict(cfg, taylor_warp=True)))
+    gen = torch.Generator().manual_seed(0)
+    c = 4 + 2 * ((cfg["cov_supp"] + 1) ** 2 - 1)
+    outs = {k: torch.randn(1, 16, 16, c, generator=gen, requires_grad=True)
+            for k in ("flows_fw", "flows_bw")}
+    res = {k: [None, None, v] for k, v in outs.items()}
+    img1, img2 = (torch.rand(1, 64, 64, 3, generator=gen) for _ in range(2))
+    out = loss(res, img1, img2, generator=gen)
+    out["total"].backward()
+    assert torch.isfinite(out["total"])
+    assert all(torch.isfinite(v.grad).all() for v in outs.values())
+
+
 @pytest.mark.parametrize("case", [
     "remat", "nan_revert", "resume", "mesh", "stage1", "adamw",
     "device_photometric_aug", "checkpoint_save", "loss_uflow_elbo",
@@ -152,10 +166,11 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     ``nan_revert``, ``stage1``) train and take effect
     (``test_torch_train_switches.py`` holds them), and so do ``optim:
     adamw`` (``test_torch_adamw.py``), the uflow trainer's
-    ``photometric_aug.device`` (``test_torch_device_aug_train.py``) and a
+    ``photometric_aug.device`` (``test_torch_device_aug_train.py``), a
     one-process mesh (``test_torch_ddp_*.py`` hold the data-parallel
-    ones); the ELBO trainer refuses the device augmentation and names the
-    roadmap."""
+    ones) and the ELBO loss's ``taylor_warp``
+    (``test_torch_taylor_*.py``); the ELBO trainer refuses the device
+    augmentation and names the roadmap."""
     train = dict(TRAIN)
     full = {"model": CFG, "loss": LOSS}
     kwargs, valid = {}, None
@@ -186,11 +201,11 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
         full["data"] = [{"type": "train",
                          "photometric_aug": {"hue": 0.5, "device": True}}]
     ported = case in ("remat", "nan_revert", "stage1", "adamw",
-                      "device_photometric_aug", "mesh")
+                      "device_photometric_aug", "mesh", "loss_uflow_elbo")
     with (contextlib.nullcontext() if ported
           else pytest.raises(error, match=match)):
         if case == "loss_uflow_elbo":  # the opt-in Taylor warp
-            get_loss(Config({"type": "uflow_elbo", "taylor_warp": True}))
+            _taylor_elbo_step()
         if case == "spatial":
             make_spatial_mesh()
         model = get_model(full.model, device="cpu")

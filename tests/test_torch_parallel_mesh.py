@@ -22,6 +22,7 @@ from arflow_tpu_torch.parallel import (
     shard_batch,
 )
 from torch_ddp_util import loader_case, run_ranks
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 
 def test_one_process_is_a_no_op():

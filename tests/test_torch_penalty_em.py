@@ -24,6 +24,7 @@ from arflow_tpu_torch.cli import fit_penalty_cli
 from arflow_tpu_torch.data import DataLoader, get_dataset
 from arflow_tpu_torch.tools import penalty_em
 from arflow_tpu_torch.utils.flow_io import write_flo
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 H, W = 64, 96
 LOSS = {"edge_constant": 150.0, "edge_asymp": 0.01, "data_loss": ["census"]}
@@ -32,10 +33,6 @@ LOSS = {"edge_constant": 150.0, "edge_asymp": 0.01, "data_loss": ["census"]}
 @pytest.fixture(autouse=True)
 def pil_on_both_sides(monkeypatch):
     monkeypatch.setattr(arflow_tpu.native, "available", lambda: False)
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _samples(seed, n=5000):

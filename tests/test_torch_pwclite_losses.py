@@ -21,6 +21,7 @@ from arflow_tpu.losses import get_loss as jax_get_loss
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.losses import ElboLoss, FullResLoss, UnFlowLoss, get_loss
 from torch_pwclite_util import lite_env  # noqa: F401  (fixture)
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 B, H, W = 2, 64, 96
 SIZES = [(H, W), (H // 4, W // 4), (H // 8, W // 8), (H // 16, W // 16),

@@ -58,7 +58,7 @@ import sys
 import numpy as np
 import torch
 from arflow_tpu_torch.serving.export import load_artifact, load_streaming_artifact
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # as few_torch_threads: the eager run's rounding
 d = np.load(sys.argv[1])
 flow, ent = load_artifact(sys.argv[2])(d["img1"], d["img2"])
 art = load_streaming_artifact(sys.argv[3])

@@ -15,6 +15,7 @@ from arflow_tpu_torch.models import get_model
 from arflow_tpu_torch.ops.cuda import KERNELS
 from arflow_tpu_torch.training import get_trainer
 from arflow_tpu_torch.utils.metrics import evaluate_flow
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 B, H, W = 1, 64, 96
 CFG = {
@@ -28,14 +29,6 @@ CFG = {
               "lr_decay_factor": 0.98, "print_freq": 100, "record_freq": 100,
               "save_iter": 100, "clip": -1.0, "seed": 0},
 }
-
-
-@pytest.fixture(autouse=True)
-def few_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(rs, flow=False):

@@ -15,6 +15,7 @@ from arflow_tpu_torch.ops.triag import (
     forward_substitution,
     inverse_diagonal,
 )
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 # (B, M, N, C): general, one row, one column, wider than tall.
 SHAPES = [(2, 5, 7, 3), (1, 1, 6, 2), (1, 6, 1, 2), (1, 3, 9, 1)]

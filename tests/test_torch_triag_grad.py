@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from arflow_tpu.ops import triag as jax_triag
 from arflow_tpu_torch.ops.triag import backward_substitution, forward_substitution
 from test_torch_triag import SHAPES, bands
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 SOLVES = {"forward": (forward_substitution, jax_triag.forward_substitution),
           "backward": (backward_substitution, jax_triag.backward_substitution)}

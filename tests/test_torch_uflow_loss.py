@@ -18,6 +18,7 @@ from arflow_tpu.config import Config as JaxConfig
 from arflow_tpu.losses import UFlowLoss as JaxUFlowLoss
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.losses import UFlowLoss, get_loss
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 B, H, W = 2, 32, 48
 LOSS_CFG = {"type": "uflow", "edge_constant": 150.0, "w_smooth": 4.0,

@@ -17,6 +17,7 @@ from arflow_tpu.utils import summary as jax_summary
 from arflow_tpu.utils import viz as jax_viz
 from arflow_tpu_torch.training.uflow_elbo_trainer import _draw_weights
 from arflow_tpu_torch.utils import summary, viz
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 
 @pytest.fixture(autouse=True)

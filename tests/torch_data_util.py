@@ -1,11 +1,29 @@
 """Synthetic FlyingChairs-format directories for the port's data, checkpoint
 and CLI tests: ``{fid:05d}_img{1,2}.ppm`` written with numpy and
-``{fid:05d}_flow.flo`` written with the port's ``write_flo``."""
+``{fid:05d}_flow.flo`` written with the port's ``write_flo``; and the
+``few_torch_threads`` fixture that every port test module takes (it
+imports no JAX)."""
 
 import numpy as np
+import pytest
+import torch
 
 from arflow_tpu_torch.ops.resize import resize_bilinear_np
 from arflow_tpu_torch.utils.flow_io import write_flo
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """One torch thread per test process while a module runs. The test lane
+    runs six workers, the data-parallel tests' rank processes and the JAX
+    side's own threads on eight cores: each further torch thread only
+    spins at the end of every parallel op, waiting for threads that share
+    its core (a loss test file took twice the CPU time with torch's default
+    of one thread per core)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def write_ppm(path, img: np.ndarray) -> None:

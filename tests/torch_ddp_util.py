@@ -1,12 +1,15 @@
 """Data-parallel runs of the port's trainers for the tests, on the CPU.
 
 ``run_ranks(case, dir, world)`` (or ``Ranks``, which returns at once and
-waits at ``results()``) starts ``world`` processes of this file,
-which join one gloo group at a free ``localhost`` port
+waits at ``results()``) hands the case to ``world`` processes of this
+file, which joined one gloo group at a free ``localhost`` port
 (``parallel.initialize_multihost``) and each run ``train_case`` on its rows
 of the same global batches (``parallel.shard_batch``); ``train_case(case)``
-in the test's own process, without a group, is the one-process run on the
-global batches. A case is a dict:
+without a group is the one-process run on the global batches (in the
+test's own process, or in a process of this file: ``one_process_case``).
+The processes live as long as the test process (``Pool``): each case
+after the first finds torch and the port imported and the group joined. A
+case is a dict:
 
 - ``trainer`` (``uflow``, ``uflow_elbo`` or ``mse``), ``model``, ``loss``
   and ``train`` config sections;
@@ -20,12 +23,18 @@ The result of a rank holds the step records (the trainer's metric rows),
 the model's state, the optimizer's state by parameter name, its count and
 the counters. Worker processes import no JAX."""
 
+import atexit
+import json
 import os
 import pickle
+import selectors
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -46,7 +55,7 @@ def worker_env() -> dict:
         [REPO, HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                         if p])
     env.pop("PYTHONSTARTUP", None)
-    env["OMP_NUM_THREADS"] = "2"  # the test lane runs several processes
+    env["OMP_NUM_THREADS"] = "1"  # as few_torch_threads (torch_data_util.py)
     return env
 
 
@@ -96,31 +105,127 @@ class Processes:
                                + texts[failed[0]][-4000:])
 
 
-def run_processes(argvs, cwd, timeout=300.0) -> None:
-    """Run the commands ``argvs`` at once and wait for all of them."""
-    Processes(argvs, cwd, timeout).wait()
+class Pool:
+    """``world`` long-lived processes of this file (``serve``) that take
+    cases one at a time: the ranks of one gloo group where ``grouped``,
+    else one process without a group. ``submit`` hands each process the
+    case's file, its entry and the caller's environment (the ``ARFLOW_*``
+    gates that a test sets); ``wait`` waits for every process's answer,
+    and raises with a failed one's traceback after ending the pool."""
+
+    def __init__(self, world: int, grouped: bool):
+        self.dir = tempfile.mkdtemp(prefix="ranks-")
+        self.busy = False
+        port = str(free_port())
+        self.procs, self.logs = [], []
+        for r in range(world):
+            log = open(os.path.join(self.dir, f"rank{r}.err"), "w+")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "serve", str(r),
+                 str(world), port, str(int(grouped))],
+                cwd=self.dir, env=worker_env(), stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=log, text=True))
+
+    def alive(self) -> bool:
+        return all(p.poll() is None for p in self.procs)
+
+    def submit(self, entry: str, path: str) -> None:
+        self.busy = True
+        msg = json.dumps({"entry": entry, "path": path, "env": worker_env()})
+        for p in self.procs:
+            p.stdin.write(msg + "\n")
+            p.stdin.flush()
+
+    def wait(self, timeout: float) -> None:
+        deadline = time.time() + timeout
+        pending = {p.stdout: r for r, p in enumerate(self.procs)}
+        errors = {}
+        with selectors.DefaultSelector() as sel:
+            for f in pending:
+                sel.register(f, selectors.EVENT_READ)
+            while pending and not errors:
+                left = deadline - time.time()
+                if left <= 0:
+                    self.close()
+                    raise TimeoutError(f"ranks still running after {timeout} s")
+                for key, _ in sel.select(min(left, 1.0)):
+                    line = key.fileobj.readline()
+                    rank = pending.pop(key.fileobj)
+                    sel.unregister(key.fileobj)
+                    reply = json.loads(line) if line else {
+                        "error": "exited:\n" + self._log(rank)}
+                    if "error" in reply:
+                        errors[rank] = reply["error"]
+        self.busy = False
+        if errors:
+            self.close()
+            rank = min(errors)
+            raise RuntimeError(f"rank {rank} failed:\n" + errors[rank][-4000:])
+
+    def _log(self, rank: int) -> str:
+        self.logs[rank].seek(0)
+        return self.logs[rank].read()[-4000:]
+
+    def close(self) -> None:
+        """End the processes and remove their directory."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            for f in (p.stdin, p.stdout):
+                f.close()
+        for log in self.logs:
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        for key, pool in list(_POOLS.items()):
+            if pool is self:
+                del _POOLS[key]
+
+
+_POOLS = {}  # (world, grouped) -> this test process's Pool
+
+
+def pool(world: int, grouped: bool) -> Pool:
+    """This process's pool of ``world`` processes (grouped or not), started
+    at its first use and again after it has ended. It takes one case at a
+    time."""
+    key = (world, grouped)
+    have = _POOLS.get(key)
+    if have is not None:
+        assert not have.busy, "a pool takes one case at a time"
+        if have.alive():
+            return have
+        have.close()
+    _POOLS[key] = Pool(world, grouped)
+    return _POOLS[key]
+
+
+@atexit.register
+def _close_pools() -> None:
+    for p in list(_POOLS.values()):
+        p.close()
 
 
 class Ranks:
-    """``entry(case, mesh)`` started on ``world`` ranks over gloo;
-    ``results()`` waits for them and returns each rank's result, so that
-    the caller's own runs overlap theirs."""
+    """``entry(case, mesh)`` handed to ``world`` ranks over gloo (or, for
+    ``one_process_case``, to one process without a group) of this
+    process's ``pool``; ``results()`` waits for them and returns each
+    rank's result, so that the caller's own runs overlap theirs."""
 
     def __init__(self, case: dict, out_dir, world: int = 2,
                  timeout: float = 300.0, entry: str = "train_case"):
         out_dir = str(out_dir)
         os.makedirs(out_dir, exist_ok=True)
         self.path, self.world = os.path.join(out_dir, "case.pkl"), world
+        self.timeout = timeout
         with open(self.path, "wb") as f:
             pickle.dump(case, f)
-        port = free_port()
-        self.procs = Processes(
-            [[sys.executable, os.path.abspath(__file__), entry, self.path,
-              str(r), str(world), str(port)] for r in range(world)],
-            out_dir, timeout)
+        self.pool = pool(world, entry != "one_process_case")
+        self.pool.submit(entry, self.path)
 
     def results(self) -> list:
-        self.procs.wait()
+        self.pool.wait(self.timeout)
         out = []
         for r in range(self.world):  # a full-width model's state: removed when read
             with open(f"{self.path}.{r}", "rb") as f:
@@ -165,7 +270,7 @@ def train_case(case: dict, mesh=None) -> dict:
     from arflow_tpu_torch.parallel import shard_batch
     from arflow_tpu_torch.training import get_trainer
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     model = get_model(Config(case["model"]), device="cpu")
     model.load_state_dict(torch.load(case["state_dict"], weights_only=True),
                           strict=True)
@@ -187,7 +292,7 @@ def train_case(case: dict, mesh=None) -> dict:
 
 
 def one_process_case(case: dict, mesh=None) -> dict:
-    """``train_case`` without a group, in a process of its own
+    """``train_case`` without a group, in a pool process of its own
     (``Ranks(case, dir, 1, entry="one_process_case")``), so that it runs
     beside the ranks and the caller's own work."""
     return train_case(case)
@@ -266,23 +371,39 @@ def mesh_case(case: dict, mesh=None) -> dict:
     return out
 
 
-def main(argv):
+def serve(rank, world, port, grouped):
+    """A ``Pool`` process: joins the group where ``grouped``, then for each
+    line on stdin (the case's file, its entry, the environment) writes
+    ``entry``'s result to ``<file>.<rank>`` and answers on stdout with one
+    line, ``{}`` or the error's traceback. What the port prints goes to
+    stderr."""
     from arflow_tpu_torch.parallel import initialize_multihost, make_mesh
 
-    entry, path, rank, world, port = argv
-    grouped = entry != "one_process_case"
+    answer = os.fdopen(os.dup(1), "w")
+    os.dup2(2, 1)
     if grouped:
-        assert initialize_multihost(f"localhost:{port}", int(world), int(rank),
+        assert initialize_multihost(f"localhost:{port}", world, rank,
                                     backend="gloo", device="cpu")
-    with open(path, "rb") as f:
-        case = pickle.load(f)
-    out = globals()[entry](case, make_mesh("cpu") if grouped else None)
-    with open(f"{path}.{rank}", "wb") as f:
-        pickle.dump(out, f)
-    if grouped:
-        torch.distributed.barrier()
-        torch.distributed.destroy_process_group()
+    for line in sys.stdin:
+        msg = json.loads(line)
+        os.environ.clear()
+        os.environ.update(msg["env"])
+        try:
+            with open(msg["path"], "rb") as f:
+                case = pickle.load(f)
+            out = globals()[msg["entry"]](case, make_mesh("cpu") if grouped
+                                          else None)
+            with open(f"{msg['path']}.{rank}", "wb") as f:
+                pickle.dump(out, f)
+            if grouped:
+                torch.distributed.barrier()
+            reply = {}
+        except BaseException:  # noqa: BLE001  (reported to the test)
+            reply = {"error": traceback.format_exc()}
+        answer.write(json.dumps(reply) + "\n")
+        answer.flush()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    assert sys.argv[1] == "serve"
+    serve(*(int(a) for a in sys.argv[2:]))

@@ -7,7 +7,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from torch_port_util import H, W
+from torch_port_util import H, W, init_shapes
 
 # chairs_uflow_elbo_mixture.json's model, dropout off.
 MIXTURE = {"type": "uflow_prob", "feature_norm": True, "level_dropout": 0.0,
@@ -19,11 +19,10 @@ COMPONENT_MIXTURE = {"type": "component", "out_channels": [2, 2, 0],
 
 def draw_variables(module, args, seed, **init_kwargs):
     """``{'params', 'batch_stats'}`` of ``module.init(rng, *args)`` as numpy
-    float32 from ``RandomState(seed)`` (shapes from ``jax.eval_shape``):
+    float32 from ``RandomState(seed)`` (shapes from ``init_shapes``):
     xavier-uniform kernels, biases in +-0.1, BatchNorm scales in [0.5,
     1.5], running means in +-0.5 and variances in [0.5, 2]."""
-    shapes = jax.eval_shape(lambda r: module.init(r, *args, **init_kwargs),
-                            jax.random.PRNGKey(0))
+    shapes = init_shapes(module, *args, **init_kwargs)
     rs = np.random.RandomState(seed)
 
     def draw(path, leaf):

@@ -2,6 +2,8 @@
 ``arflow_tpu``'s: JAX parameters from a fixed key, images from a seed, the
 port's model with those weights, and the JAX forward."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -13,33 +15,44 @@ from arflow_tpu.config import Config as JaxConfig
 from arflow_tpu.models import get_model as jax_get_model
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.models import get_model, uflow_state_dict_from_jax
+from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
 
 H, W = 64, 96
 CFG = {"type": "uflow", "feature_norm": True, "level_dropout": 0.0}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two torch threads per test process while a module runs: the test
-    lane runs several processes at once, and torch's default of one thread
-    per core in each of them oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+_INIT_SHAPES = {}
+
+
+def init_shapes(module, *args, **init_kwargs):
+    """``jax.eval_shape`` of ``module.init(PRNGKey(0), *args,
+    **init_kwargs)`` (``args`` arrays or ``ShapeDtypeStruct``s): the shapes
+    of the tree that ``init`` makes, without compiling it. Traced once per
+    process for each module (its class and fields), argument shapes,
+    keywords and setting of the ``ARFLOW_*`` variables: many tests draw
+    weights for one config, and a trace of a full-width model's ``init``
+    takes seconds."""
+    key = (type(module).__qualname__, repr(module),
+           tuple((tuple(a.shape), str(a.dtype)) for a in args),
+           tuple(sorted(init_kwargs.items())),
+           tuple(sorted((k, v) for k, v in os.environ.items()
+                        if k.startswith("ARFLOW_"))))
+    if key not in _INIT_SHAPES:
+        _INIT_SHAPES[key] = jax.eval_shape(
+            lambda r, *a: module.init(r, *a, **init_kwargs),
+            jax.random.PRNGKey(0), *args)
+    return _INIT_SHAPES[key]
 
 
 def draw_jax_params(model_cfg, seed=0, **init_kwargs):
     """Full-width JAX parameters of ``model_cfg`` as numpy float32, drawn
     from ``RandomState(seed)`` in the tree that ``init`` makes (its shapes
-    from ``jax.eval_shape``, which skips compiling the init): xavier-uniform
-    kernels, as the init draws them, and small nonzero biases, so that the
-    bias conversion is exercised too."""
-    model = jax_get_model(JaxConfig(model_cfg))
+    from ``init_shapes``): xavier-uniform kernels, as the init draws them,
+    and small nonzero biases, so that the bias conversion is exercised
+    too."""
     img = jax.ShapeDtypeStruct((1, H, W, 3), jnp.float32)
-    shapes = jax.eval_shape(
-        lambda r, a, b: model.init(r, a, b, **init_kwargs),
-        jax.random.PRNGKey(0), img, img)["params"]
+    shapes = init_shapes(jax_get_model(JaxConfig(model_cfg)), img, img,
+                         **init_kwargs)["params"]
     rs = np.random.RandomState(seed)
 
     def draw(leaf):

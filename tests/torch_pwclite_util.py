@@ -21,6 +21,7 @@ from arflow_tpu.config import Config as JaxConfig
 from arflow_tpu.models import get_model as jax_get_model
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.models import get_model, state_dict_from_jax
+from torch_port_util import init_shapes
 
 B, H, W = 2, 64, 128
 # The JAX package's relayouts, off: the W-fold pyramid (on by default at
@@ -80,15 +81,13 @@ def n_init_frames(cfg) -> int:
 def draw_params(model_cfg, seed=0):
     """Full-width JAX parameters of ``model_cfg`` as numpy float32, drawn
     from ``RandomState(seed)`` in the tree that ``init`` makes (shapes from
-    ``jax.eval_shape``): kernels normal with variance 1 / fan_in (half the
+    ``init_shapes``): kernels normal with variance 1 / fan_in (half the
     kaiming init's, so that the flows of random weights stay within a few
     tens of pixels over six levels), biases small and nonzero, so that the
     bias conversion is exercised too."""
-    model = jax_get_model(JaxConfig(model_cfg))
     img = jax.ShapeDtypeStruct((1, H, W, 3), jnp.float32)
     imgs = [img] * n_init_frames(model_cfg)
-    shapes = jax.eval_shape(lambda r, *a: model.init(r, *a),
-                            jax.random.PRNGKey(0), *imgs)["params"]
+    shapes = init_shapes(jax_get_model(JaxConfig(model_cfg)), *imgs)["params"]
     rs = np.random.RandomState(seed)
 
     def draw(leaf):
