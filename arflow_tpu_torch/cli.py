@@ -116,11 +116,14 @@ def train_main(cfg, log, device="cuda"):
     from arflow_tpu_torch.parallel import make_mesh
     from arflow_tpu_torch.training import get_trainer
 
-    if cfg.model.get("dtype") == "int8":
+    if (cfg.model.get("dtype") == "int8"
+            or os.environ.get("ARFLOW_INT8_PYRAMID") == "1"):
         raise ValueError(
-            "model.dtype 'int8' is a serving-only mode of the JAX package: "
-            "the quantization round has zero gradient, so the feature "
-            "pyramid would receive no training.")
+            "int8 pyramid (model.dtype 'int8' / ARFLOW_INT8_PYRAMID=1) is a "
+            "serving-only mode: the quantization round has zero gradient, "
+            "so the feature pyramid would receive no training. Train with "
+            "'bfloat16' and switch the inference or serving config to "
+            "'int8'.")
     dev = resolve_device(device)
     mesh = make_mesh(dev) if dist.is_initialized() else None
     seed_everything(cfg.seed)

@@ -2,8 +2,9 @@
 ``"uflow_prob"`` (``PWCProbFlow``) and ``"component"`` (``ComponentNet``),
 either with ``mixture_weights``; ``"pwclite"`` (``PWCLite``, 2, 3 or 5
 frames), ``"pwclite_prob"`` (``PWCLiteProb``) and ``"pwclite_uflow"``
-(``PWCLiteUflow``); each with ``dtype`` float32 or bfloat16. ``int8``
-raises."""
+(``PWCLiteUflow``); each with ``dtype`` float32 or bfloat16, and the
+three UFlow types with ``"int8"``: bfloat16 with the quantized serving
+pyramid."""
 
 from __future__ import annotations
 
@@ -38,19 +39,31 @@ PWCLITE_TYPES = ("pwclite", "pwclite_prob", "pwclite_uflow")
 def parse_dtype(name):
     """``model.dtype`` -> the compute dtype: None for float32 math
     (``None``, ``"float32"``, ``"f32"``), ``torch.bfloat16`` for
-    ``"bfloat16"`` / ``"bf16"`` (float32 parameters and outputs). ``"int8"``
-    is the JAX package's serving mode measured on its own chip only
-    (``arflow_tpu/cli.py:67-76``) and raises."""
+    ``"bfloat16"`` / ``"bf16"`` and ``"int8"`` (float32 parameters and
+    outputs; ``"int8"`` also quantizes the feature pyramid,
+    ``_int8_pyramid``)."""
     if name in (None, "float32", "f32"):
         return None
-    if name in ("bfloat16", "bf16"):
+    if name in ("bfloat16", "bf16", "int8"):
         return torch.bfloat16
-    if name == "int8":
-        raise NotImplementedError(
-            "model.dtype 'int8' (the JAX package's quantized serving "
-            "pyramid) is not ported: ROADMAP.md queue 1, 'config switches' "
-            "(model.dtype int8)")
     raise NotImplementedError(f"model dtype {name!r}")
+
+
+def _int8_pyramid(cfg) -> bool:
+    """Whether ``cfg`` (a ``model`` section) asks for the int8 pyramid
+    (``model.dtype: "int8"``, serving only): the UFlow types quantize their
+    feature pyramids' convs (``models/layers.py:quantized_conv2d``); the
+    PWC-Lite types have no int8 path, in the JAX package either, and
+    raise."""
+    if cfg.get("dtype") != "int8":
+        return False
+    if cfg.type in PWCLITE_TYPES:
+        raise NotImplementedError(
+            "model.dtype 'int8' quantizes the uflow-family feature pyramid; "
+            f"the '{cfg.type}' family has no int8 path, in the JAX package "
+            "as here (ARFLOW_INT8_PYRAMID=1 quantizes its pyramid's convs "
+            "all the same)")
+    return True
 
 
 def _normalize_out_channels(oc) -> tuple:
@@ -71,6 +84,7 @@ def get_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
     or ``load_pretrained``."""
     if cfg.type not in ("uflow", "uflow_prob", "component") + PWCLITE_TYPES:
         raise NotImplementedError(f"model type {cfg.type!r}")
+    int8_pyramid = _int8_pyramid(cfg)
     dtype = parse_dtype(cfg.get("dtype"))
     dev = resolve_device(device)
     if cfg.type in PWCLITE_TYPES:
@@ -91,7 +105,8 @@ def get_model(cfg, device="cuda", seed: int = 0) -> torch.nn.Module:
         init_kaiming_normal(model, torch.Generator().manual_seed(seed))
         return model.to(dev).eval()
     common = dict(feature_norm=cfg.get("feature_norm", True),
-                  level_dropout=cfg.get("level_dropout", 0.0), dtype=dtype)
+                  level_dropout=cfg.get("level_dropout", 0.0), dtype=dtype,
+                  int8_pyramid=int8_pyramid)
     if cfg.type == "uflow":
         model = PWCFlow(**common)
     else:

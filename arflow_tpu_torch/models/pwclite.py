@@ -57,7 +57,10 @@ class FeatureExtractor(nn.Module):
     """Per level a stride-2 conv and ``convs_per_level - 1`` more, each with
     a leaky ReLU. Takes an NCHW image, cast to ``dtype`` where given (after
     the rescale to [-1, 1] with ``rescale``); returns the pyramid coarsest
-    first."""
+    first. Its convs are pyramid convs that quantize only under
+    ``ARFLOW_INT8_PYRAMID=1`` (``models/layers.py:int8_pyramid_enabled``):
+    the family has no ``model.dtype: "int8"``, in the JAX package
+    either."""
 
     def __init__(self, num_chs=NUM_CHS, convs_per_level: int = 2,
                  rescale: bool = False, dtype: torch.dtype | None = None):
@@ -66,7 +69,8 @@ class FeatureExtractor(nn.Module):
         self.compute_dtype = dtype
         self.convs = nn.ModuleList(
             nn.Sequential(*[conv_block(cin if j == 0 else cout, cout,
-                                       stride=2 if j == 0 else 1, dtype=dtype)
+                                       stride=2 if j == 0 else 1, dtype=dtype,
+                                       int8=False)
                             for j in range(convs_per_level)])
             for cin, cout in zip(num_chs[:-1], num_chs[1:]))
 

@@ -8,8 +8,8 @@ flows, finest first: [full, 1/2, 1/4 (refined), 1/8, 1/16, 1/32].
 
 Only the gates-off math is ported: none of the JAX package's TPU relayouts
 (W-fold pyramid, H-fold decoder, pyramid and bidirectional batching,
-subpixel deconv, split decoder, int8). Module and ``state_dict`` keys are
-the reference's, so a checkpoint written by ``arflow-to-torch`` loads with
+subpixel deconv, split decoder). Module and ``state_dict`` keys are the
+reference's, so a checkpoint written by ``arflow-to-torch`` loads with
 ``strict=True``.
 
 With ``train=True`` and ``level_dropout`` p > 0, whole levels drop out as in
@@ -24,6 +24,11 @@ bias and input (``models/layers.py``), the pyramid casts the images on
 entry, the warps, feature normalization and upsamples run on bfloat16
 tensors, the cost volume takes a float32 round trip
 (``ops/cost_volume.py``), and the flows are cast back to float32.
+
+With ``int8_pyramid=True`` (``model.dtype: "int8"``, serving only) the
+pyramid's convs compute ``models/layers.py:quantized_conv2d`` and hand on
+``dtype``, as the JAX package's do; ``ARFLOW_INT8_PYRAMID=0/1`` overrides
+that both ways.
 
 Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
 """
@@ -59,9 +64,10 @@ MAX_DISPLACEMENT = 4
 class PWCFeaturePyramid(nn.Module):
     """``PYRAMID_FILTERS`` convs per level; each level's first conv has
     stride 2. Input in [0, 1] is cast to ``dtype`` (where given) and
-    rescaled to [-1, 1]."""
+    rescaled to [-1, 1]. With ``int8`` the convs quantize
+    (``models/layers.py:int8_pyramid_enabled``)."""
 
-    def __init__(self, dtype: torch.dtype | None = None):
+    def __init__(self, dtype: torch.dtype | None = None, int8: bool = False):
         super().__init__()
         self.compute_dtype = dtype
         self._convs = nn.ModuleList()
@@ -70,7 +76,7 @@ class PWCFeaturePyramid(nn.Module):
             level = nn.ModuleList()
             for i in range(num_layers):
                 level.append(conv2d(c, num_filters, 3, stride=2 if i == 0 else 1,
-                                    dtype=dtype))
+                                    dtype=dtype, int8=int8))
                 c = num_filters
             self._convs.append(level)
 
@@ -97,12 +103,12 @@ class PWCFlow(nn.Module):
     pyramid_module = "_feature_pyramid_extractor"
 
     def __init__(self, feature_norm: bool = True, level_dropout: float = 0.0,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, int8_pyramid: bool = False):
         super().__init__()
         self.feature_norm = feature_norm
         self.level_dropout = level_dropout
         self.compute_dtype = dtype
-        self._feature_pyramid_extractor = PWCFeaturePyramid(dtype)
+        self._feature_pyramid_extractor = PWCFeaturePyramid(dtype, int8_pyramid)
 
         feat = PYRAMID_FILTERS[-1][1]
         cv = (2 * MAX_DISPLACEMENT + 1) ** 2

@@ -35,6 +35,8 @@ direction) group of that pass draws its own whole-level keep from the
 does (``models/uflow.py``), its outputs cast back to float32 after the
 log-diagonal clamp; ``ComponentNet`` passes it to both nets, and
 ``MixtureWeightsNet`` stays float32, as in the JAX package.
+``int8_pyramid=True`` (``model.dtype: "int8"``) quantizes the feature
+pyramids' convs as ``PWCFlow``'s; the weights net stays unquantized.
 
 Inside the network tensors are NCHW; ``forward`` takes and returns NHWC.
 """
@@ -95,7 +97,7 @@ class PWCProbFlow(nn.Module):
     def __init__(self, out_channels=(2, 2, 0), inv_cov: bool = False,
                  n_pyramids: int = 1, feature_norm: bool = True,
                  level_dropout: float = 0.0, mixture_weights: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, int8_pyramid: bool = False):
         super().__init__()
         self.compute_dtype = dtype
         self.out_channels = tuple(int(c) for c in out_channels)
@@ -106,7 +108,7 @@ class PWCProbFlow(nn.Module):
         self.diag_bias = -math.log(2) if inv_cov else math.log(2)
         l_ch, m_ch, n_ch = self.out_channels
         self._feature_pyramid_extractor = nn.ModuleList(
-            PWCFeaturePyramid(dtype) for _ in range(n_pyramids))
+            PWCFeaturePyramid(dtype, int8_pyramid) for _ in range(n_pyramids))
 
         # Every level sees [context_up, out_up (L+M), one cost volume per
         # flow pair, features1]; the coarsest one zeros and the log-diagonal
@@ -305,11 +307,11 @@ class ComponentNet(nn.Module):
     def __init__(self, inv_cov: bool = False, feature_norm: bool = True,
                  level_dropout: float = 0.0, out_channels=(2, 2, 0),
                  n_pyramids: int = 1, mixture_weights: bool = False,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, int8_pyramid: bool = False):
         super().__init__()
         kwargs = dict(out_channels=(2, 2, 0), inv_cov=inv_cov,
                       feature_norm=feature_norm, level_dropout=level_dropout,
-                      dtype=dtype)
+                      dtype=dtype, int8_pyramid=int8_pyramid)
         self.pwcnet1 = PWCProbFlow(**kwargs)
         self.pwcnet2 = PWCProbFlow(**kwargs)
         # As in the JAX model, ``out_channels`` and ``n_pyramids`` size only

@@ -41,7 +41,14 @@ eager model with 4 cost-volume launches per forward (phase export);
 with the conv FLOPs and the top kernels of each, the kernel against the
 plain cost volume behind the same float32 round trip, the round trip's
 casts, setup (a) at 448x1024 b8 with its entropy, the b1 stream, an
-artifact, and the uflow and ELBO (a) train steps beside float32) and the
+artifact, and the uflow and ELBO (a) train steps beside float32) and
+``model.dtype`` int8 (phase int8: the int8 conv route, an im2col and
+``torch._int_mm``, against its plain version at the pyramid's 15 conv
+shapes of the 384x640 b8 forward and timed beside the bf16 conv there; that
+forward in int8, bf16 and float32 in turns with the int8 pyramid's
+device-time breakdown by stage and the flow gaps to float32; the card's
+int8 forward against the CPU's at 1x64x96; setup (a) at 448x1024 b8; the
+b1 stream and an artifact) and the
 trainer switches (phase train_switches: ``nan_revert`` on a NaN batch,
 ``remat`` against the plain step with level dropout on, with the peak
 memory of each, and ``stage1``); and the PWC-Lite family (phase
@@ -129,6 +136,7 @@ from arflow_tpu_torch.losses import blocks as elbo_blocks_module
 from arflow_tpu_torch.losses import mse as mse_loss_module
 from arflow_tpu_torch.losses import uflow as uflow_loss_module
 from arflow_tpu_torch.models import get_model, load_pretrained
+from arflow_tpu_torch.models import layers as layers_module
 from arflow_tpu_torch.models import pwclite as pwclite_module
 from arflow_tpu_torch.models import uflow as uflow_module
 from arflow_tpu_torch.models import uflow_prob as uflow_prob_module
@@ -3499,6 +3507,8 @@ def phase_serving_tools(dev, smi):
 # model.dtype bfloat16 and the trainer switches (phases bf16, train_switches)
 
 PEAK_BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak, same data sheet
+# The emitted phase names' tag of each low-precision model.dtype.
+LOW_TAGS = {"bfloat16": "bf16", "int8": "int8"}
 # bf16 against float32, mean relative gap per output level, as
 # tests/test_mixed_precision.py:35 holds the JAX package's.
 BF16_REL = 0.05
@@ -3696,31 +3706,35 @@ def bf16_prob(dev, smi, gen):
     return launches
 
 
-def bf16_stream(cfg, m16, dev, smi, gen):
-    """The 2-frame engine at 384x640 b1 in bf16: flows float32 and equal to
-    the monolithic bf16 forward, flows/s beside the float32 engine's."""
+def dtype_stream(cfg, model, dtype, dev, smi, gen):
+    """The 2-frame engine at 384x640 b1 with ``model.dtype`` ``dtype``
+    (bfloat16 or int8): flows float32 and equal to the monolithic
+    forward of ``model``, flows/s beside the float32 engine's; the int8
+    GEMMs counted."""
+    tag = LOW_TAGS[dtype]
     m = 4 * STREAM_FRAMES
     tex = texture(1, H + m, W + m, gen, dev)
     seq = [tex[:, :, 2 * t:2 * t + H, 3 * t:3 * t + W].permute(0, 2, 3, 1).contiguous()
            for t in range(STREAM_FRAMES)]
-    state = m16.state_dict()
+    state = model.state_dict()
     engines = {dt: StreamingFlowEngine(
-        cfg.model if dt == "float32" else bf16_model_cfg(cfg.model), state,
-        device=dev) for dt in ("float32", "bfloat16")}
-    eng = engines["bfloat16"]
+        cfg.model if dt == "float32" else Config(dict(cfg.model, dtype=dt)),
+        state, device=dev) for dt in ("float32", dtype)}
+    eng = engines[dtype]
     reset_launch_counts()
-    outs = [eng.push(f) for f in seq]
-    torch.cuda.synchronize()
+    with int8_probe() as counts:
+        outs = [eng.push(f) for f in seq]
+        torch.cuda.synchronize()
     launches = COST_VOLUME.launches
     flows = [o["flow"] for o in outs if o is not None]
     err, scale = 0.0, 1.0
     with torch.inference_mode():
         for t in (0, len(flows) - 1):
-            mono = m16(seq[t], seq[t + 1], with_bk=False)["flows_fw"][0]
+            mono = model(seq[t], seq[t + 1], with_bk=False)["flows_fw"][0]
             err = max(err, max_abs(flows[t], mono))
             scale = max(scale, float(mono.abs().max()))
     rates = {}
-    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+    for dt in ("float32", dtype, dtype, "float32"):
         e = engines[dt]
         for f in seq[:3]:
             e.push(f)
@@ -3731,30 +3745,39 @@ def bf16_stream(cfg, m16, dev, smi, gen):
                 e.push(f)
         torch.cuda.synchronize()
         rates.setdefault(dt, []).append(3 * STREAM_FRAMES / (time.perf_counter() - t0))
-    emit({"phase": "bf16_serving", "shape": [1, H, W], "launches": launches,
+    emit({"phase": f"{tag}_serving", "shape": [1, H, W], "launches": launches,
+          "int8_gemms": counts["gemms"],
           "flow_dtype": str(flows[0].dtype), "vs_monolithic_max_abs_err": err,
           "atol": FLOW_RTOL * scale, "flows_per_s_f32": rates["float32"],
-          "flows_per_s_bf16": rates["bfloat16"], "card": smi})
+          f"flows_per_s_{tag}": rates[dtype], "card": smi})
     if flows[0].dtype != torch.float32 or not err <= FLOW_RTOL * scale:
-        raise AssertionError(f"bf16 stream: {flows[0].dtype}, {err}")
+        raise AssertionError(f"{tag} stream: {flows[0].dtype}, {err}")
     if launches != 4 * (STREAM_FRAMES - 1):
-        raise AssertionError(f"bf16 stream launched the kernel {launches} times")
+        raise AssertionError(f"{tag} stream launched the kernel {launches} times")
+    want_gemms = 15 * STREAM_FRAMES if dtype == "int8" else 0
+    if counts["gemms"] != want_gemms:
+        raise AssertionError(f"{tag} stream ran {counts['gemms']} int8 GEMMs, "
+                             f"not {want_gemms}")
     return launches
 
 
-def bf16_export(cfg, m16, dev, smi, gen):
-    """A bf16 monolithic artifact at 384x640 b1, saved, loaded and held to
-    the eager bf16 model; 4 launches per forward."""
+def dtype_export(cfg, model, dtype, dev, smi, gen):
+    """A monolithic artifact of ``model.dtype`` ``dtype`` at 384x640 b1,
+    saved, loaded and held to the eager ``model``; 4 launches per
+    forward, and an int8 artifact's graph holds ``torch._int_mm``."""
     from arflow_tpu_torch.serving.export import load_artifact
 
-    full = Config({"model": dict(cfg.model, dtype="bfloat16"), "loss": cfg.loss})
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    tag = LOW_TAGS[dtype]
+    full = Config({"model": dict(cfg.model, dtype=dtype), "loss": cfg.loss})
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
     try:
-        path = os.path.join(tmp, "uflow_bf16.afx")
+        path = os.path.join(tmp, f"uflow_{tag}.afx")
         t0 = time.perf_counter()
-        ep, meta = export_inference(full, m16.state_dict(), 1, (H, W), device=dev)
+        ep, meta = export_inference(full, model.state_dict(), 1, (H, W), device=dev)
         save_artifact(path, ep, meta)
         export_s = time.perf_counter() - t0
+        int_mm = sum(n.target == torch.ops.aten._int_mm.default
+                     for n in ep.graph.nodes)
         art = load_artifact(path)
         img1, img2 = shifted_pair(1, H, W, 1, 2, gen, dev)
         reset_launch_counts()
@@ -3762,17 +3785,20 @@ def bf16_export(cfg, m16, dev, smi, gen):
         torch.cuda.synchronize()
         launches = COST_VOLUME.launches
         with torch.inference_mode():
-            want = m16(img1, img2, with_bk=False)["flows_fw"][0]
+            want = model(img1, img2, with_bk=False)["flows_fw"][0]
         err, scale = max_abs(flow, want), max(float(want.abs().max()), 1.0)
-        emit({"phase": "bf16_export", "shape": [1, H, W], "export_s": export_s,
+        emit({"phase": f"{tag}_export", "shape": [1, H, W], "export_s": export_s,
               "bytes": os.path.getsize(path), "launches": launches,
+              "int_mm_nodes": int_mm,
               "flow_dtype": str(flow.dtype), "vs_eager_max_abs_err": err,
               "atol": FLOW_RTOL * scale, "card": smi})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if flow.dtype != torch.float32 or launches != 4 or not err <= FLOW_RTOL * scale:
-        raise AssertionError(f"bf16 artifact: {flow.dtype}, {launches} launches, "
+        raise AssertionError(f"{tag} artifact: {flow.dtype}, {launches} launches, "
                              f"{err} > {FLOW_RTOL * scale}")
+    if int_mm != (30 if dtype == "int8" else 0):
+        raise AssertionError(f"{tag} artifact: {int_mm} int8 GEMM nodes")
     return launches
 
 
@@ -3867,8 +3893,8 @@ def phase_bf16(cfg, dev, smi):
     bf16_casts(dev, smi)
     launches = {"inference_b8": launches_fwd,
                 "prob_a_b8": bf16_prob(dev, smi, gen),
-                "stream_b1": bf16_stream(cfg, m16, dev, smi, gen),
-                "export_b1": bf16_export(cfg, m16, dev, smi, gen)}
+                "stream_b1": dtype_stream(cfg, m16, "bfloat16", dev, smi, gen),
+                "export_b1": dtype_export(cfg, m16, "bfloat16", dev, smi, gen)}
     del m16
 
     loss_cfg = cfg.loss.copy()
@@ -4036,6 +4062,274 @@ def phase_train_switches(cfg, dev, smi):
           "fired": t._stage1_fired, "card": smi})
     if seen != [4.0, 0.0, 4.0]:
         raise AssertionError(f"stage1: w_smooth after each epoch {seen}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# model.dtype int8, the quantized serving pyramid (phase int8)
+
+PEAK_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same data sheet
+INT8_ITERS = 10
+# The stages of models/layers.py:quantized_conv2d, each timed in a profiler
+# range: label -> the functions of that stage.
+INT8_STAGES = {"quantize": ("quantize_activations", "quantize_weights"),
+               "im2col": ("im2col",), "int_mm": ("int8_matmul",),
+               "dequantize": ("dequantize",)}
+# The small-input check: the card's int8 uflow at 1x64x96 against the
+# CPU's, which tests/test_torch_int8_uflow.py holds to the JAX package,
+# both directions per output level: the mean gap at most twice the CPU's
+# own int8 gap to float32 plus 1e-3 px (that test's bound).
+INT8_SMALL = (1, 64, 96)
+
+
+def pyramid_conv_shapes(b, h, w):
+    """(B, Cin, H, W, stride) of each UFlow pyramid conv at an hxw input:
+    per level a stride-2 conv and two stride-1 convs."""
+    shapes, c = [], 3
+    for num_layers, num_filters in uflow_module.PYRAMID_FILTERS:
+        for i in range(num_layers):
+            stride = 2 if i == 0 else 1
+            shapes.append((b, c, h, w, stride))
+            if stride == 2:
+                h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+            c = num_filters
+    return shapes
+
+
+@contextlib.contextmanager
+def int8_probe():
+    """Within: each stage of the int8 conv runs in a profiler range
+    ``int8_<label>`` (``INT8_STAGES``), and ``counts["gemms"]`` counts the
+    int8 GEMMs."""
+    counts = {"gemms": 0}
+    gemm = layers_module.int8_matmul
+
+    def counted(*args):
+        counts["gemms"] += 1
+        return gemm(*args)
+
+    with contextlib.ExitStack() as stack:
+        for label, names in INT8_STAGES.items():
+            for name in names:
+                fn = counted if name == "int8_matmul" else getattr(layers_module, name)
+                stack.enter_context(mock.patch.object(
+                    layers_module, name, named_range(f"int8_{label}", fn)))
+        yield counts
+
+
+def pyramid_range():
+    """Each UFlow feature pyramid's forward in a profiler range
+    ``pyramid``."""
+    cls = uflow_module.PWCFeaturePyramid
+    return mock.patch.object(cls, "forward", named_range("pyramid", cls.forward))
+
+
+def int8_convs(dev, smi):
+    """The int8 conv route (im2col + ``torch._int_mm``) against its plain
+    version at every pyramid conv shape of the uflow b8 384x640 forward
+    (each runs twice per forward, once per image): int32 sums bit for bit.
+    Beside it, each shape's whole quantized conv and the bf16 conv the
+    bf16 model runs there, weight casts included (CUDA graphs)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rows = []
+    for b, c, h, w, s in pyramid_conv_shapes(B, H, W):
+        xq = torch.randint(-127, 128, (b, h, w, c), generator=gen, device=dev,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (32, c, 3, 3), generator=gen, device=dev,
+                           dtype=torch.int8)
+        xq[0, 0, 0, 0] = wq[0, 0, 0, 0] = -127
+        got = layers_module.int8_conv(xq, wq, s, 1)
+        want = layers_module.int8_conv_reference(xq, wq, s, 1)
+        ho, wo = got.shape[1:3]
+        x = torch.randn((b, c, h, w), generator=gen, device=dev).to(torch.bfloat16)
+        weight = 0.1 * torch.randn((32, c, 3, 3), generator=gen, device=dev)
+        bias = torch.zeros(32, device=dev)
+        route_ms = graph_ms(lambda: layers_module.quantized_conv2d(
+            x, weight, bias, s, 1, torch.bfloat16), launches=5, replays=5)
+        bf16_ms = graph_ms(lambda: F.conv2d(
+            x, weight.to(torch.bfloat16), bias.to(torch.bfloat16), s, 1),
+            launches=5, replays=5)
+        m, k = b * ho * wo, 9 * c
+        ops = 2 * m * k * 32
+        # Either conv's least time: x read and the bf16 output written
+        # once (bytes), or its multiply-adds at the int8 / bf16 peak.
+        io_s = (2 * x.numel() + 2 * m * 32) / PEAK_BYTES_PER_S
+        rows.append({"shape": [b, c, h, w], "stride": s, "m_k_n": [m, k, 32],
+                     "equal": bool(torch.equal(got, want)),
+                     "route_ms": route_ms, "bf16_conv_ms": bf16_ms,
+                     "route_bound_ms": 1e3 * max(io_s, ops / PEAK_INT8_OPS_PER_S),
+                     "bf16_bound_ms": 1e3 * max(io_s, ops / PEAK_BF16_FLOP_PER_S),
+                     "gemm_gop": ops / 1e9,
+                     # the route's own intermediates: the int8 patch matrix
+                     # (K padded to a multiple of 8) and the int32 sums
+                     "im2col_mb": m * -(-k // 8) * 8 / 1e6,
+                     "int32_mb": 4 * m * 32 / 1e6})
+        del got, want
+    emit({"phase": "int8_convs", "rows": rows, "card": smi})
+    bad = [r["shape"] for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"int8 route != plain version at {bad}")
+    return rows
+
+
+def int8_gaps(outs, ref):
+    """Per output level, (mean, max) |out - ref| in px."""
+    return [[float((a.double() - b).abs().mean()), max_abs(a, b)]
+            for a, b in zip(outs, ref)]
+
+
+def int8_inference(cfg, dev, smi, gen):
+    """chairs_uflow.json's PWCFlow at 384x640 b8 in float32, bf16 and int8
+    from one set of weights: the int8 flows against the plain cost volume,
+    the per-level flow gaps of int8 and bf16 to float32, the three forward
+    times in turns, and where the int8 and bf16 forwards' device time goes
+    (the pyramid, and in it the int8 conv's stages)."""
+    m32 = get_model(cfg.model, device=dev, seed=SEED)
+    models = {"float32": m32}
+    for dt in ("bfloat16", "int8"):
+        models[dt] = get_model(Config(dict(cfg.model, dtype=dt)), device=dev)
+        models[dt].load_state_dict(m32.state_dict(), strict=True)
+    img1, img2 = shifted_pair(B, H, W, 2, 3, gen, dev)
+    torch.cuda.empty_cache()
+    fns = {dt: (lambda m=m: m(img1, img2, with_bk=False)["flows_fw"])
+           for dt, m in models.items()}
+    with torch.inference_mode():
+        reset_launch_counts()
+        with int8_probe() as counts:
+            out8 = fns["int8"]()
+            torch.cuda.synchronize()
+        launches, gemms = COST_VOLUME.launches, counts["gemms"]
+        out16, out32 = fns["bfloat16"](), fns["float32"]()
+        with mock.patch.object(uflow_module, "compute_cost_volume",
+                               plain_round_trip):
+            plain8 = fns["int8"]()
+        torch.cuda.synchronize()
+        if COST_VOLUME.launches != 3 * launches:  # int8, bf16, float32
+            raise AssertionError("int8: the plain run launched the kernel")
+        finite = all(o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+                     for o in out8)
+        scale = max(float(plain8[0].abs().max()), 1.0)
+        err_plain = max_abs(out8[0], plain8[0])
+        turns = [(dt, cuda_ms(fns[dt], iters=INT8_ITERS)) for dt in
+                 ("float32", "bfloat16", "int8", "int8", "bfloat16", "float32")]
+        ms = {dt: sum(t for d, t in turns if d == dt) / 2 for dt in fns}
+        stages = {label: [f"int8_{label}"] for label in INT8_STAGES}
+        with pyramid_range(), int8_probe():
+            prof8 = profile_window(fns["int8"], 3, ms["int8"],
+                                   {"pyramid": ["pyramid"], **stages})
+        with pyramid_range():
+            prof16 = profile_window(fns["bfloat16"], 3, ms["bfloat16"],
+                                    {"pyramid": ["pyramid"]})
+    row = {"phase": "int8_inference", "shape": [B, H, W], "launches": launches,
+           "int8_gemms": gemms,
+           "gap_per_level_mean_max_vs_f32": {
+               "int8": int8_gaps(out8, out32), "bf16": int8_gaps(out16, out32)},
+           "kernel_vs_plain_max_abs_err": err_plain, "atol": FLOW_RTOL * scale,
+           "ms_per_batch": ms, "ms_turns": turns,
+           "maps_per_s": {dt: B / (t / 1e3) for dt, t in ms.items()},
+           "device_ms_int8": prof8["device_ms_per_call"],
+           "device_ms_bf16": prof16["device_ms_per_call"],
+           "busy_share_int8": prof8["busy_share"],
+           "busy_share_bf16": prof16["busy_share"],
+           "kernel_launches_per_call_int8": prof8["kernel_launches_per_call"],
+           "kernel_launches_per_call_bf16": prof16["kernel_launches_per_call"],
+           "pyramid_ms_int8": prof8["pyramid_ms"],
+           "pyramid_share_int8": prof8["pyramid_share"],
+           "pyramid_ms_bf16": prof16["pyramid_ms"],
+           "pyramid_share_bf16": prof16["pyramid_share"],
+           "int8_stage_ms": {k: prof8[f"{k}_ms"] for k in INT8_STAGES},
+           "cost_volume_ms_int8": prof8["cost_volume_fwd_ms_per_call"],
+           "top5_kernels_int8": prof8["top_kernels"][:5],
+           "top5_kernels_bf16": prof16["top_kernels"][:5],
+           "card": smi}
+    emit(row)
+    if not finite:
+        raise AssertionError("int8 forward: non-float32 or non-finite flows")
+    if launches != 4 or gemms != 30:
+        raise AssertionError(f"int8 forward: {launches} cost-volume launches, "
+                             f"{gemms} int8 GEMMs (want 4, 30)")
+    if not err_plain <= FLOW_RTOL * scale:
+        raise AssertionError(f"int8 kernel vs plain cost volume: {err_plain}")
+    return models["int8"], launches
+
+
+def int8_small_vs_cpu(cfg, model, dev, smi, gen):
+    """The card's int8 uflow at ``INT8_SMALL`` against the same model on
+    the CPU, both directions per level, within twice the CPU's own int8
+    gap to float32 plus 1e-3 px (mean |.|)."""
+    b, h, w = INT8_SMALL
+    img1, img2 = shifted_pair(b, h, w, 1, 2, gen, dev)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    outs = {}
+    for where, dt in (("cuda", "int8"), ("cpu", "int8"), ("cpu", "float32")):
+        m = get_model(Config(dict(cfg.model, dtype=dt)), device="cpu")
+        m.load_state_dict(state, strict=True)
+        m.to(dev if where == "cuda" else "cpu")
+        a, c = (img1, img2) if where == "cuda" else (img1.cpu(), img2.cpu())
+        with torch.inference_mode():
+            res = m(a, c, with_bk=True)
+        outs[where, dt] = [f.cpu() for key in ("flows_fw", "flows_bw")
+                           for f in res[key]]
+    rows = [[float((g - c).abs().mean()), float((c - f).abs().mean())]
+            for g, c, f in zip(outs["cuda", "int8"], outs["cpu", "int8"],
+                               outs["cpu", "float32"])]
+    emit({"phase": "int8_small_vs_cpu", "shape": list(INT8_SMALL),
+          "mean_gap_card_vs_cpu_and_cpu_int8_vs_f32": rows, "card": smi})
+    bad = [r for r in rows if not r[0] <= 2 * r[1] + 1e-3]
+    if bad:
+        raise AssertionError(f"int8 card vs CPU: {bad}")
+
+
+def int8_prob(dev, smi, gen):
+    """Setup (a) at 448x1024 b8 in int8 with its entropy, finite, timed in
+    turns beside bf16."""
+    cfg = prob_config(*PROB_SETUPS[0][1:])
+    m16 = get_model(Config(dict(cfg.model, dtype="bfloat16")), device=dev,
+                    seed=SEED)
+    m8 = get_model(Config(dict(cfg.model, dtype="int8")), device=dev)
+    m8.load_state_dict(m16.state_dict(), strict=True)
+    img1, img2 = shifted_pair(PB, PH, PW, 2, 3, gen, dev)
+
+    def forward(model):
+        res = model(img1, img2, with_bk=False)
+        return res["flows_fw"][0][..., :2], entropy_of(res, cfg.loss, dev)
+
+    with torch.inference_mode():
+        reset_launch_counts()
+        flow8, ent8 = forward(m8)
+        torch.cuda.synchronize()
+        launches = COST_VOLUME.launches
+        flow16, ent16 = forward(m16)
+        finite = all(bool(torch.isfinite(t).all()) for t in (flow8, ent8))
+        ms16, ms8, turns = timed_pair(lambda: forward(m16), lambda: forward(m8),
+                                      iters=INT8_ITERS)
+    emit({"phase": "int8_prob_inference", "setup": "a", "shape": [PB, PH, PW],
+          "launches": launches, "finite": finite,
+          "flow_gap_mean_max_vs_bf16": int8_gaps([flow8], [flow16])[0],
+          "entropy_gap_mean_max_vs_bf16": int8_gaps([ent8], [ent16])[0],
+          "ms_per_batch_bf16": ms16, "ms_per_batch_int8": ms8,
+          "ms_turns_16_8_8_16": turns,
+          "maps_per_s_bf16": PB / (ms16 / 1e3), "maps_per_s_int8": PB / (ms8 / 1e3),
+          "card": smi})
+    if not finite or launches != 4:
+        raise AssertionError(f"int8 (a): finite {finite}, {launches} launches")
+    return launches
+
+
+def phase_int8(cfg, dev, smi):
+    """``model.dtype`` int8 on the card: the int8 conv route against its
+    plain version at the pyramid's 15 conv shapes, the uflow b8 384x640
+    forward beside bf16 and float32 with its device-time breakdown, the
+    card against the CPU at 1x64x96, setup (a) at 448x1024 b8, the b1
+    stream and an artifact. Returns the cost volume's launches per part."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    int8_convs(dev, smi)
+    m8, launches_fwd = int8_inference(cfg, dev, smi, gen)
+    int8_small_vs_cpu(cfg, m8, dev, smi, gen)
+    launches = {"inference_b8": launches_fwd,
+                "prob_a_b8": int8_prob(dev, smi, gen),
+                "stream_b1": dtype_stream(cfg, m8, "int8", dev, smi, gen),
+                "export_b1": dtype_export(cfg, m8, "int8", dev, smi, gen)}
     return launches
 
 
@@ -5321,6 +5615,7 @@ def main() -> int:
     seconds.update(tool_seconds)
     bf16_launches = timed("bf16", phase_bf16, cfg, dev, smi)
     remat_launches = timed("train_switches", phase_train_switches, cfg, dev, smi)
+    int8_launches = timed("int8", phase_int8, cfg, dev, smi)
     lite_err, lite_levels = timed("pwclite_kernels", phase_pwclite_kernels,
                                   dev, smi)
     lite_launches = {
@@ -5417,6 +5712,11 @@ def main() -> int:
         # uflow step at 256x448 b8 and one ELBO (a) step at 256x448 b4.
         "launches_bf16": {k: v if isinstance(v, int) else v["cost_volume"]
                           for k, v in bf16_launches.items()},
+        # model.dtype int8 (phase int8), its pyramid quantized, the cost
+        # volume through the same float32 round trip: one forward at 384x640
+        # b8 and of setup (a) at 448x1024 b8, the 12-frame b1 stream and a
+        # b1 artifact's forward.
+        "launches_int8": int8_launches,
         # One uflow step at 256x448 b8 with train.remat: the forward's 8 and
         # the 8 of the recomputed decoder levels (phase train_switches).
         "launches_remat": remat_launches["cost_volume"],

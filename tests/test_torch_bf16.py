@@ -5,7 +5,8 @@
   ``mixture_weights``) in bfloat16 with float32 parameters, the float32
   model's ``state_dict`` keys and float32 outputs; a JAX checkpoint's
   weights load into it unchanged (``models/weights.py`` needs no dtype);
-  ``int8`` raises and names its roadmap item;
+  ``int8`` builds the bfloat16 model with its pyramid quantized
+  (``test_torch_int8_conv.py`` holds the int8 path);
 - the cost volume's float32 round trip: float32 into the op, forward and
   backward, bfloat16 out, and bfloat16 gradients of bfloat16 features,
   equal to the JAX Pallas kernel's round trip (interpret mode).
@@ -48,8 +49,17 @@ def test_parse_dtype(name, want):
 
 
 def test_int8_raises_and_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*int8"):
-        get_model(Config(dict(UFLOW, dtype="int8")), device="cpu")
+    """``int8`` is ported: bfloat16 compute, float32 parameters, and the
+    pyramid's convs (only those) quantizing."""
+    model = get_model(Config(dict(UFLOW, dtype="int8")), device="cpu")
+    assert parse_dtype("int8") is torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    flags = {n: m.int8 for n, m in model.named_modules()
+             if getattr(m, "int8", None) is not None}
+    assert len(flags) == 15 and all(flags.values())
+    assert all(n.startswith("_feature_pyramid_extractor.") for n in flags)
+    assert {m.compute_dtype for m in model.modules()
+            if hasattr(m, "compute_dtype")} == {torch.bfloat16}
 
 
 @pytest.mark.parametrize("cfg", [UFLOW, PROB, COMPONENT, MIXTURE,

@@ -102,16 +102,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         load_pretrained(path, cfg)
 
 
-# The PWC-Lite family is ported; int8 is not, for any model type (the
-# PWC-Lite types have no int8 path in the JAX package either).
+# model.dtype int8 is ported for the UFlow types; the PWC-Lite types have
+# no int8 path, in the JAX package either, and raise with its meaning.
 @pytest.mark.parametrize("model_cfg", [
     {"type": "pwclite", "n_frames": 2, "dtype": "int8"},
     {"type": "pwclite_prob", "n_frames": 2, "dtype": "int8"},
     {"type": "uflow", "dtype": "int8"},
 ])
 def test_unported_configs_raise_and_name_the_roadmap(model_cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(Config(model_cfg), device="cpu")
+    if model_cfg["type"].startswith("pwclite"):
+        with pytest.raises(NotImplementedError, match="has no int8 path"):
+            get_model(Config(model_cfg), device="cpu")
+    else:
+        model = get_model(Config(model_cfg), device="cpu")
+        assert model.compute_dtype is torch.bfloat16
+        assert model._feature_pyramid_extractor._convs[0][0].int8
 
 
 TRAIN = {"batch_size": 1, "epoch_num": 1, "epoch_size": 1000,

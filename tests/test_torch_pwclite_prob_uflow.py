@@ -100,6 +100,7 @@ def test_bf16_outputs_float32_near_float32(cfg):
 
 @pytest.mark.parametrize("kind", ["pwclite", "pwclite_prob", "pwclite_uflow"])
 def test_int8_raises(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*int8"):
+    # the JAX factory's refusal (arflow_tpu/models/__init__.py:_int8)
+    with pytest.raises(NotImplementedError, match="has no int8 path"):
         get_model(Config({"type": kind, "n_frames": 2, "dtype": "int8"}),
                   device="cpu")

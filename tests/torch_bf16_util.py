@@ -53,43 +53,46 @@ def jax_cost_volume_round_trip(monkeypatch):
     monkeypatch.setattr(jax_uflow_prob, "compute_cost_volume", round_trip)
 
 
-def jax_forwards(cfg, variables, img1, img2, dtypes=("float32", "bfloat16")):
-    """{dtype: the JAX model's eval forward, ``with_bk=True``}, for each of
-    ``dtypes`` from the same float32 variables."""
+def jax_forwards(cfg, variables, img1, img2, dtypes=("float32", "bfloat16"),
+                 with_bk=True):
+    """{dtype: the JAX model's eval forward}, for each of ``dtypes`` from
+    the same float32 variables."""
     out = {}
     for dt in dtypes:
         model = jax_get_model(JaxConfig(dict(cfg, dtype=dt)))
-        run = jax.jit(lambda v, a, b, m=model: m.apply(v, a, b, with_bk=True))
+        run = jax.jit(lambda v, a, b, m=model: m.apply(v, a, b, with_bk=with_bk))
         out[dt] = jax.device_get(run(variables, jnp.asarray(img1),
                                      jnp.asarray(img2)))
     return out
 
 
-def port_forwards(cfg, state_dict, img1, img2):
-    """{dtype: the port's eval forward, ``with_bk=True``} from one
-    ``state_dict``, which loads strictly into both."""
+def port_forwards(cfg, state_dict, img1, img2, dtypes=("float32", "bfloat16"),
+                  with_bk=True):
+    """{dtype: the port's eval forward} for each of ``dtypes`` from one
+    ``state_dict``, which loads strictly into each."""
     out = {}
-    for dt in ("float32", "bfloat16"):
+    for dt in dtypes:
         model = get_model(Config(dict(cfg, dtype=dt)), device="cpu")
         model.load_state_dict(state_dict, strict=True)
         with torch.no_grad():
             out[dt] = model(torch.from_numpy(img1), torch.from_numpy(img2),
-                            with_bk=True)
+                            with_bk=with_bk)
     return out
 
 
-def level_gaps(port, jax_out, keys=KEYS):
-    """Per key and output level, (mean |port bf16 - JAX bf16|, mean |JAX
-    bf16 - JAX f32|, mean |port bf16 - port f32| / mean |port f32|); the
-    port's outputs must be float32 of JAX's shapes."""
+def level_gaps(port, jax_out, keys=KEYS, low="bfloat16"):
+    """Per key and output level, (mean |port low - JAX low|, mean |JAX
+    low - JAX f32|, mean |port low - port f32| / mean |port f32|), ``low``
+    the dtype held to float32 (bfloat16 or int8); the port's outputs must
+    be float32 of JAX's shapes."""
     gaps = {}
     for key in keys:
-        assert len(port["bfloat16"][key]) == len(jax_out["bfloat16"][key]) == 6
+        assert len(port[low][key]) == len(jax_out[low][key]) == 6
         for lvl in range(6):
-            p16, p32 = (port[dt][key][lvl] for dt in ("bfloat16", "float32"))
+            p16, p32 = (port[dt][key][lvl] for dt in (low, "float32"))
             assert p16.dtype == p32.dtype == torch.float32
             j16, j32 = (np.asarray(jax_out[dt][key][lvl], np.float64)
-                        for dt in ("bfloat16", "float32"))
+                        for dt in (low, "float32"))
             assert tuple(p16.shape) == j16.shape
             assert torch.isfinite(p16).all()
             p16, p32 = p16.double().numpy(), p32.double().numpy()
