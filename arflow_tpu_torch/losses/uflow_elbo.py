@@ -371,8 +371,8 @@ def _refuse(cfg):
     if cfg.approx == "sparse" and cfg.inv_cov:
         raise NotImplementedError(
             "Sparse precision matrix representation is not implemented! (nor "
-            "in the JAX package; ROADMAP.md queue 1, 'the probabilistic UFlow "
-            "path' (the sparse precision ELBO))")
+            "in the JAX package; ROADMAP.md queue 3, 'the sparse precision "
+            "ELBO')")
     if cfg.approx == "mixture" and cfg.inv_cov:
         raise NotImplementedError(
             "Inverse covariance parametrization is not implemented for "

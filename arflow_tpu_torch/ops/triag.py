@@ -1,6 +1,5 @@
 """Banded triangular solves over the image lattice and their adjoints
-(port of ``arflow_tpu/ops/triag.py`` but its natural-gradient identities
-and ``inverse_l1norm``).
+(port of ``arflow_tpu/ops/triag.py``).
 
 The lower-triangular matrix L couples each pixel to its left (B), upper (C)
 and upper-left (D) neighbours, besides itself (A). Tensors are NHWC with
@@ -25,6 +24,11 @@ The banded products ``matrix_vector_product*`` (y = L x and y = L^T x,
 the general ones with k-support bands) are plain tensor ops that autograd
 differentiates: the ``sparse`` ELBO posterior calls the general one, and
 ``MseLoss`` the other two.
+
+The natural-gradient identities (``natural_gradient_identity_t`` and
+``_c``) and the condition estimate ``inverse_l1norm`` are the reference's
+unused machinery, kept for parity: no loss calls them, and
+``natural_grad: true`` is refused by the ELBO loss in both packages.
 """
 
 from __future__ import annotations
@@ -238,3 +242,104 @@ def inverse_diagonal(a, b, c, d=None, chunk: int = 1 << 15):
             ss = ss + (y_d * y_d).sum(dim=-1)
         sums.append(ss)  # (B, K, C)
     return torch.cat(sums, dim=1).reshape(bsz, m, n, ch)
+
+
+# -- natural gradients and the condition estimate ----------------------------
+
+
+def natural_gradient(ga, gb, gc, ta, tb, tc):
+    """The natural gradient with respect to the 3-band lower factor T of a
+    precision matrix, from the Euclidean gradients G. NHWC bands: A
+    (B,M,N,C), B (B,M,N-1,C), C (B,M-1,N,C); returns (q_ll, q_l1l, q_lNl)
+    in those shapes."""
+    h_ll = (ta * ga + _pad_nhwc(tb * gb, right=1)
+            + _pad_nhwc(tc * gc, bottom=1)) / 2.0
+    h_l1l = ta[:, :, 1:] * gb
+    h_lnl = ta[:, 1:] * gc
+    h_ln1l = tb[:, 1:] * gc[:, :, 1:]
+
+    q_ll = ta * h_ll
+    q_l1l = ta[:, :, 1:] * h_l1l + tb * h_ll[:, :, :-1]
+    q_lnl = (ta[:, 1:] * h_lnl + _pad_nhwc(tb[:, 1:] * h_ln1l, left=1)
+             + tc * h_ll[:, :-1])
+    return q_ll, q_l1l, q_lnl
+
+
+def _zero_d(a):
+    return a.new_zeros((a.shape[0], max(a.shape[1] - 1, 0),
+                        max(a.shape[2] - 1, 0), a.shape[3]))
+
+
+def _or_zeros(g, like):
+    return torch.zeros_like(like) if g is None else g
+
+
+def _precision_mean_grad(a, b, c, d, dx):
+    """L^-T L^-1 dx: solved through L, then L^T."""
+    return _upper_solve(a, b, c, d, _lower_solve(a, b, c, d, dx))
+
+
+def _covariance_mean_grad(a, b, c, d, dx):
+    """L L^T dx: the banded products, no solves."""
+    return matrix_vector_product(a, b, c, d, matrix_vector_product_T(a, b, c, d, dx))
+
+
+class _NaturalGradientIdentity(torch.autograd.Function):
+    """Identity on (a, b, c, x) whose backward maps the bands' gradients
+    through ``natural_gradient`` and the mean's through ``mean_grad``."""
+
+    @staticmethod
+    def forward(ctx, mean_grad, a, b, c, x):
+        ctx.mean_grad = mean_grad
+        ctx.save_for_backward(a, b, c)
+        return a.view_as(a), b.view_as(b), c.view_as(c), x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, da, db, dc, dx):
+        a, b, c = ctx.saved_tensors
+        da, db, dc = (_or_zeros(g, t) for g, t in ((da, a), (db, b), (dc, c)))
+        dx_n = None if dx is None else ctx.mean_grad(a, b, c, _zero_d(a), dx)
+        return (None, *natural_gradient(da, db, dc, a, b, c), dx_n)
+
+
+def natural_gradient_identity_t(a, b, c, x):
+    """Identity on (a, b, c, x) whose backward applies the natural
+    gradient of the precision parametrization: the mean's gradient is
+    solved through L, then L^T; the bands' go through
+    ``natural_gradient``."""
+    return _NaturalGradientIdentity.apply(_precision_mean_grad, a, b, c, x)
+
+
+def natural_gradient_identity_c(a, b, c, x):
+    """The covariance parametrization's identity: the mean's gradient goes
+    through the banded products L^T, then L (no solves); the bands' through
+    ``natural_gradient``."""
+    return _NaturalGradientIdentity.apply(_covariance_mean_grad, a, b, c, x)
+
+
+def inverse_l1norm(a, b, c, n_iter: int = 100) -> float:
+    """An estimate of ||L^-1||_1 by Higham's algorithm 5.1, for one lattice:
+    a (M,N), b (M,N-1), c (M-1,N); ``inf`` when it does not settle within
+    ``n_iter`` iterations.
+
+    An eval-only diagnostic (the reference's detector of an exploding
+    posterior): a host loop of solves that reads two scalars back per
+    iteration. NEVER call it inside a train step: on the card each
+    iteration is a device round trip.
+    """
+    m, n = a.shape
+    a4, b4, c4 = (t[None, :, :, None] for t in (a, b, c))
+    d4 = a.new_zeros((1, m - 1, n - 1, 1))
+    x = torch.ones((m, n), dtype=a.dtype, device=a.device) / (m * n)
+    with torch.no_grad():
+        for _ in range(n_iter):
+            y = _lower_solve(a4, b4, c4, d4, x[None, :, :, None])[0, :, :, 0]
+            xi = torch.where(y < 0, -1.0, 1.0).to(a.dtype)
+            z = _upper_solve(a4, b4, c4, d4, xi[None, :, :, None])[0, :, :, 0]
+            abs_z = z.abs()
+            flat_idx = int(abs_z.argmax())
+            if float(abs_z.max()) <= float((z * x).sum()):
+                return float(y.abs().sum())
+            x = torch.zeros((m, n), dtype=a.dtype, device=a.device)
+            x[flat_idx // n, flat_idx % n] = 1.0
+    return float("inf")

@@ -67,10 +67,19 @@ pwclite_train: one step each of ``pwclite`` with the ``unflow`` loss,
 ``pwclite_uflow`` with ``fullres`` and ``pwclite_prob`` with ``elbo``
 under injected noise against the plain cost volume and float64, 10 steps
 of the first two through ``UFlowTrainer`` with the reference's AdamW,
-timed and profiled, and ``train.remat``'s step; pwclite_cli:
-``train_main`` with that configuration, validation EPE, a resume and an
-overfit check); and the training input path (phase input_path, at
-384x512: the native host library against the numpy hue and decode, the
+timed and profiled, ``train.remat``'s step, and a bf16 cell of each of
+the two: one step beside float32, 10 steps and the step's device time;
+pwclite_cli: ``train_main`` with that configuration, validation EPE, a
+resume, an overfit check, and 6 steps in bf16); the training tools (phase
+tools_kernels: both kernels at the tools' level shapes; phase tools:
+``synth_dataset``'s CLI at 384x512 read back by ``Chairs`` and trained
+on by ``train_main`` with chairs_uflow_mse.json, ``sanity_train``'s
+and ``bf16_compare``'s 300-step runs, ``real_frame_train`` and its
+``--elbo`` mode at 384x640 on the tests' generated frames); the
+natural-gradient machinery (phase natural_grad: both identities'
+backward, ``natural_gradient``, the penalties' derivatives and
+``inverse_l1norm`` in float32 against float64 on the CPU); and the
+training input path (phase input_path, at 384x512: the native host library against the numpy hue and decode, the
 host's ms per sample by stage with the hue in numpy and native, the
 photometric augmentation on the card against the CPU's with its launches,
 a ``uflow`` step and a resume with it, and bf16 ``train_main`` with each
@@ -98,6 +107,7 @@ import copy
 import cProfile
 import importlib
 import importlib.util
+import io
 import json
 import logging
 import os
@@ -2381,8 +2391,8 @@ def step_time(phase, one_step, batch, shape, smi, labels=None, ranges=None,
     ms = cuda_ms(one_step, iters=10, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 1e9
     labels = labels or {}
-    emit({"phase": f"{phase}_time", **labels, "shape": shape,
-          "dtype": "float32", "ms_per_step": ms, "steps_per_s": 1e3 / ms,
+    emit({"phase": f"{phase}_time", "dtype": "float32", **labels, "shape": shape,
+          "ms_per_step": ms, "steps_per_s": 1e3 / ms,
           "samples_per_s": batch * 1e3 / ms, "peak_memory_gb": peak, "card": smi})
     prof = train_step_profile(one_step, ms, census=census, ranges=ranges,
                               extra_groups=groups)
@@ -4785,18 +4795,116 @@ def phase_pwclite_train(dev, smi):
             raise AssertionError(f"({key}) {PWCLITE_TRAIN_STEPS} steps launched "
                                  f"{launches[key]}, not {want} + {want}")
         flops = conv_flops(model, x["img1_ph"], x["img2_ph"], with_bk=True)
-        step_time("pwclite_train",
-                  lambda: trainer.train_step(x["img1"], x["img2"], x["img1_ph"],
-                                             x["img2_ph"]),
-                  TB, [TB, TH, TW], smi,
-                  {"setup": key, "conv_gflop_forward": flops / 1e9,
-                   "conv_bound_ms_f32_step": 3e3 * flops / PEAK_F32_FLOP_PER_S},
-                  ranges={"loss": (type(loss), "__call__")}, census=None)
+        prof32 = step_time("pwclite_train",
+                           lambda: trainer.train_step(x["img1"], x["img2"],
+                                                      x["img1_ph"], x["img2_ph"]),
+                           TB, [TB, TH, TW], smi,
+                           {"setup": key, "conv_gflop_forward": flops / 1e9,
+                            "conv_bound_ms_f32_step": 3e3 * flops / PEAK_F32_FLOP_PER_S},
+                           ranges={"loss": (type(loss), "__call__")}, census=None)
         if key == "pwclite_unflow":
             launches["remat"] = pwclite_remat(cfg, model, batches, smi)
         del trainer, model
+        launches[f"{key}_bf16"] = pwclite_bf16_cell(key, cfg, loss, batches,
+                                                    per_step, prof32, dev, smi)
     if failures:
         raise AssertionError("; ".join(failures))
+    return launches
+
+
+def pwclite_bf16_cell(key, cfg, loss, batches, per_step, prof32, dev, smi):
+    """The bf16 cell of a trained PWC-Lite setup at 256x448 b8, from the
+    weights of seed SEED: one step in float32 and in bf16 on the same
+    draws, the bf16 loss within BF16_LOSS_RTOL of the float32 one and the
+    gradients' cosine at least BF16_GRAD_COS (the ``bf16`` phase's
+    bounds), with ``per_step`` + ``per_step`` launches; PWCLITE_TRAIN_STEPS bf16 steps
+    through ``UFlowTrainer.train()`` with the launches counted; then
+    ``step_time`` of the bf16 step (CUDA events, profile, peak memory),
+    its device and wall ms beside the float32 step's (``prof32``).
+    The bf16 steps run at PWCLITE_OVERFIT_LR: at the config's 2e-4 the
+    bf16 ``pwclite`` run reached a NaN loss at step 8 on the card (AdamW's
+    first step takes the flow far out of frame, as in ``pwclite_cli``'s
+    overfit). Returns the trainer's launches."""
+    log = logging.getLogger("chip_smoke")
+    x = batches[0]
+    model_cfg = bf16_model_cfg(cfg.model)
+    m32 = get_model(cfg.model, device=dev, seed=SEED)
+    m16 = get_model(model_cfg, device=dev)
+    m16.load_state_dict(m32.state_dict(), strict=True)
+
+    def forward_loss(net, g):
+        res = net(x["img1"], x["img2"], with_bk=True, train=True, generator=g)
+        return loss(res, x["img1"], x["img2"])
+
+    state = torch.Generator(device=dev).manual_seed(SEED).get_state()
+    loss32, g32 = step_gradients(m32, forward_loss, state, dev)
+    reset_launch_counts()
+    loss16, g16 = step_gradients(m16, forward_loss, state, dev)
+    step_launches = {k.name: k.launches for k in KERNELS}
+    del m32
+    finite = bool(np.isfinite(loss16)) and all(
+        bool(torch.isfinite(g).all()) for g in g16.values())
+    loss_rel = abs(loss16 - loss32) / abs(loss32)
+    cos = cosine(flat(g16), flat(g32))
+    grads_f32 = all(p.grad is None or p.grad.dtype == torch.float32
+                    for p in m16.parameters())
+    emit({"phase": "pwclite_bf16_step", "setup": key, "shape": [TB, TH, TW],
+          "loss_f32": loss32, "loss_bf16": loss16, "loss_rel_gap": loss_rel,
+          "loss_rtol": BF16_LOSS_RTOL, "grad_cosine": cos,
+          "grad_cos_bound": BF16_GRAD_COS,
+          "grad_rel_l2": rel_l2(flat(g16), flat(g32).double()),
+          "params_with_grad": len(g16), "launches": step_launches,
+          "grads_float32": grads_f32, "finite": finite, "card": smi})
+    if not (finite and grads_f32 and sorted(g16) == sorted(g32)
+            and loss_rel <= BF16_LOSS_RTOL and cos >= BF16_GRAD_COS):
+        raise AssertionError(f"({key}) bf16 step: finite {finite}, float32 grads "
+                             f"{grads_f32}, loss {loss_rel}, cosine {cos}")
+    if step_launches != {"cost_volume": per_step, "cost_volume_bwd": per_step}:
+        raise AssertionError(f"({key}) bf16 step launched {step_launches}")
+
+    bf16_cfg = Config({**cfg, "model": model_cfg})
+    train_cfg = cfg.train.copy()
+    train_cfg.update(epoch_num=1, seed=SEED, lr=PWCLITE_OVERFIT_LR)
+    trainer = RecordingTrainer(
+        [batches[i % len(batches)] for i in range(PWCLITE_TRAIN_STEPS)],
+        None, m16, loss, log, os.path.join(REPO, "outputs", "chip_smoke"),
+        train_cfg, model_cfg=model_cfg, full_cfg=bf16_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    rows = torch.stack(trainer.rows).cpu()
+    emit({"phase": "pwclite_bf16_train", "setup": key, "shape": [TB, TH, TW],
+          "lr": train_cfg.lr, "steps": trainer.i_iter, "seconds_incl_first_steps": seconds,
+          "launches": launches,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **{k: rows[:, i].tolist() for i, k in enumerate(
+              ("losses", "l_ph", "l_sm", "flow_mean"))}})
+    if trainer.i_iter != PWCLITE_TRAIN_STEPS or not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"({key}) bf16: {trainer.i_iter} steps, finite "
+                             f"{bool(torch.isfinite(rows).all())}")
+    want = per_step * PWCLITE_TRAIN_STEPS
+    if launches != {"cost_volume": want, "cost_volume_bwd": want}:
+        raise AssertionError(f"({key}) bf16: {PWCLITE_TRAIN_STEPS} steps launched "
+                             f"{launches}, not {want} + {want}")
+    prof16 = step_time("pwclite_bf16_train",
+                       lambda: trainer.train_step(x["img1"], x["img2"], x["img1_ph"],
+                                                  x["img2_ph"]),
+                       TB, [TB, TH, TW], smi, {"setup": key, "dtype": "bfloat16"},
+                       ranges={"loss": (type(loss), "__call__")}, census=None)
+    emit({"phase": "pwclite_bf16_vs_f32", "setup": key, "shape": [TB, TH, TW],
+          **{f"{what}_{tag}": prof[name] for tag, prof in (("f32", prof32),
+                                                           ("bf16", prof16))
+             for what, name in (("device_ms", "device_ms_per_call"),
+                                ("wall_ms", "untraced_ms_per_call"),
+                                ("busy_share", "busy_share"))},
+          "device_ms_ratio": prof32["device_ms_per_call"] / prof16["device_ms_per_call"],
+          "wall_ms_ratio": prof32["untraced_ms_per_call"] / prof16["untraced_ms_per_call"],
+          "card": smi})
     return launches
 
 
@@ -4850,6 +4958,7 @@ def phase_pwclite_cli(dev, smi):
                            "cost_volume_bwd": 10 * n},
                 # the unflow loss returns no occlusion mask: no mask image
                 ("EPE",), {"Valid/gt", "Valid/pred_0"}, 2, shape=(TH, TW))
+            bf16_launches = pwclite_bf16_cli(make_cfg, tmp, dev, smi)
         img1, img2, _ = stacked_pairs(root, "train", TB, dev)
         cfg = make_cfg(os.path.join(tmp, "overfit"), 1, None)
         model = get_model(cfg.model, device=dev, seed=SEED)
@@ -4871,9 +4980,329 @@ def phase_pwclite_cli(dev, smi):
                 np.isfinite(after) and after < before):
             raise AssertionError(f"{trainer.i_iter} steps on one batch: loss "
                                  f"{before} -> {after}")
-        return launches
+        return launches, bf16_launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pwclite_bf16_cli(make_cfg, tmp, dev, smi):
+    """``train_main`` of the PWC-Lite config with ``model.dtype`` bfloat16
+    at PWCLITE_OVERFIT_LR (as ``pwclite_bf16_cell``): 2 epochs of 3 steps
+    with validation; finite losses and EPE, 10 + 10 launches per step and
+    10 per validation. Returns its launches."""
+    log = logging.getLogger("chip_smoke")
+    save_root = os.path.join(tmp, "pwclite_bf16")
+    cfg = make_cfg(save_root, CLI_EPOCHS, None)
+    cfg.model = bf16_model_cfg(cfg.model)
+    cfg.train.lr = PWCLITE_OVERFIT_LR
+    probe = EntryPointProbe(UFlowTrainer)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with probe.active():
+        run = train_main(cfg, log, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    rows = torch.stack([st["metrics"] for st in probe.steps]).cpu()
+    epe = events_of(save_root, "Valid_EPE_0")
+    n_steps = CLI_EPOCHS * (ELBO_CLI_EPOCH_SIZE + 1)
+    want = {"cost_volume": 10 * n_steps + 10 * CLI_EPOCHS,
+            "cost_volume_bwd": 10 * n_steps}
+    emit({"phase": "pwclite_bf16_cli_train", "shape": [TB, TH, TW],
+          "steps": run.i_iter, "losses": rows[:, 0].tolist(), "valid_epe": epe,
+          "launches": launches, "launches_want": want,
+          "seconds_train_main": seconds, "card": smi})
+    if run.i_iter != n_steps or len(rows) != n_steps:
+        raise AssertionError(f"bf16 pwclite train_main: {run.i_iter} steps")
+    if not (bool(torch.isfinite(rows).all()) and len(epe) == CLI_EPOCHS
+            and np.isfinite(epe).all()):
+        raise AssertionError(f"bf16 pwclite train_main: losses {rows[:, 0].tolist()}, "
+                             f"EPE {epe}")
+    if launches != want:
+        raise AssertionError(f"bf16 pwclite train_main launched {launches}, not {want}")
+    return launches
+
+
+# -- the training tools and the natural-gradient machinery (phases tools,
+# natural_grad) ----------------------------------------------------------------
+
+SYNTH_PAIRS = 64
+SYNTH_SIZE = (384, 512)  # FlyingChairs' frame size, chairs_uflow_mse.json's test_shape
+SYNTH_VALID = 6  # the fixed validation split's fids among 1 .. 64
+TOOL_STEPS = 300
+REAL_FRAME_SIZE = (384, 640)
+
+
+def synth_flows(n, h, w, seed=0, max_flow=6.0) -> list:
+    """The flows ``generate_chairs`` writes, from its draws replayed: per
+    pair the texture's, the flow's and the second frame's noise."""
+    from arflow_tpu_torch.tools import synth_dataset
+
+    rng = np.random.RandomState(seed)
+    flows = []
+    for _ in range(n):
+        synth_dataset._rgb_texture(rng, h, w)
+        flows.append(synth_dataset.smooth_flow(rng, h, w, max_flow=max_flow))
+        rng.randn(h, w, 3)
+    return flows
+
+
+def quiet(fn, *args):
+    """``fn(*args)``'s result and the lines it printed; if it raises, the
+    lines go to stderr."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = fn(*args)
+    except BaseException:
+        sys.stderr.write(out.getvalue())
+        raise
+    return result, out.getvalue().splitlines()
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with the launch counts set to 0 before it and read
+    after; its result, lines printed, launches and seconds."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result, lines = quiet(fn, *args)
+    torch.cuda.synchronize()
+    return result, lines, {k.name: k.launches for k in KERNELS}, time.perf_counter() - t0
+
+
+def photo_frames(out_dir) -> str:
+    """The tests' generated frames (``tests/fixtures``, git-ignored),
+    written into ``out_dir``."""
+    spec = importlib.util.spec_from_file_location(
+        "repo_test_fixtures", os.path.join(REPO, "tests", "fixtures", "__init__.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    return fixtures.ensure_photo_frames(out_dir)
+
+
+def phase_tools_kernels(dev, smi):
+    """Both kernels against their plain versions, then timed, at the level
+    shapes the tools give them that no other phase times: PWCProbFlow's at
+    128x160 b8 (``sanity_train``, ``bf16_compare``), one direction of
+    ``real_frame_train``'s uflow step at 384x640 b1, and its ``--elbo``
+    step's both directions in one batch of 2."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    levels = {"tools_b8_128x160": level_shapes(8, 128, 160),
+              "real_frame_b1_384x640": level_shapes(1, *REAL_FRAME_SIZE),
+              "real_frame_elbo_b2_384x640": level_shapes(2, *REAL_FRAME_SIZE)}
+    checks = [(shape, MD, 0) for shapes in levels.values() for shape in shapes]
+    fwd_err = check_forward(checks, gen, dev)
+    fwd_rows = time_forward(levels, gen, dev, smi)
+    bwd_err, inputs = check_grad(checks, gen, dev)
+    bwd_rows = {key: time_grad(shapes, inputs, smi, key)
+                for key, shapes in levels.items()}
+    return fwd_err, fwd_rows, bwd_err, bwd_rows
+
+
+def phase_tools(dev, smi):
+    """The four training tools on the card, each at its own defaults:
+
+    - ``synth_dataset``'s CLI writes SYNTH_PAIRS pairs at 384x512, which
+      ``Chairs`` reads back, each flow equal to the generator's bit for bit;
+      ``train_main`` with chairs_uflow_mse.json there: 6 steps
+      (2 epochs of 3, b16) and one validation of the 6 validation pairs,
+      a finite EPE, 4 + 4 launches per step and 4 per validation pair;
+    - ``sanity_train``: TOOL_STEPS steps, ending under EPE 1.0 (its own
+      check), 4 + 4 launches per step;
+    - ``bf16_compare``: 2 x TOOL_STEPS steps and 4 + 4 held-out forwards;
+      its JSON line, failing only on a non-finite value;
+    - ``real_frame_train`` on the tests' generated frames at 384x640:
+      TOOL_STEPS steps, its census loss below the untrained one, the three
+      warp PSNRs; then ``--elbo`` for TOOL_STEPS steps: a finite loss and
+      the entropy ``.npy`` written. 8 + 8 (``--elbo``: 4 + 4) launches per
+      step and 8 (4) per evaluation, of which there are 2.
+
+    Returns the launches of each."""
+    from arflow_tpu_torch.tools import bf16_compare, real_frame_train, sanity_train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    launches, failures = {}, []
+    try:
+        # synth_dataset, read back, and train_main on it
+        root = os.path.join(tmp, "synth_chairs")
+        h, w = SYNTH_SIZE
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "arflow_tpu_torch.tools.synth_dataset",
+             "--root", root, "--n", str(SYNTH_PAIRS), "--size", f"{h}x{w}"],
+            cwd=REPO, capture_output=True, text=True, timeout=600, check=True)
+        write_s = time.perf_counter() - t0
+        ds = Chairs(root, split="trainval")
+        want = synth_flows(SYNTH_PAIRS, h, w)
+        unequal = [i for i in range(len(ds))
+                   if not np.array_equal(ds[i]["target"]["flow"], want[i])]
+        n_valid = len(Chairs(root, split="valid"))
+        emit({"phase": "tools_synth_dataset", "pairs": len(ds), "size": [h, w],
+              "valid_pairs": n_valid, "flows_unequal": unequal,
+              "cli_stdout": out.stdout.strip(), "seconds_write": write_s})
+        if len(ds) != SYNTH_PAIRS or unequal or n_valid != SYNTH_VALID:
+            raise AssertionError(f"synth_dataset: {len(ds)} pairs, {n_valid} valid, "
+                                 f"flows unequal at {unequal}")
+        save_root = os.path.join(tmp, "synth_mse")
+        cfg = mse_cli_config(root, save_root, CLI_EPOCHS)
+        cfg.train.valid_freq = CLI_EPOCHS
+        log = logging.getLogger("chip_smoke")
+        run, _, launches["synth_mse"], seconds = counted(train_main, cfg, log, dev)
+        n_steps = CLI_EPOCHS * (ELBO_CLI_EPOCH_SIZE + 1)
+        epe = events_of(save_root, "Valid_EPE_0")
+        want = {"cost_volume": 4 * n_steps + 4 * SYNTH_VALID,
+                "cost_volume_bwd": 4 * n_steps}
+        emit({"phase": "tools_synth_train_main", "config": MSE_CONFIG,
+              "batch": cfg.train.batch_size, "steps": run.i_iter, "valid_epe": epe,
+              "launches": launches["synth_mse"], "launches_want": want,
+              "seconds": seconds, "card": smi})
+        if run.i_iter != n_steps or len(epe) != 1 or not np.isfinite(epe).all():
+            failures.append(f"synth train_main: {run.i_iter} steps, EPE {epe}")
+        if launches["synth_mse"] != want:
+            failures.append(f"synth train_main launched {launches['synth_mse']}")
+        del run
+
+        # sanity_train: its own check fails the phase
+        epe, lines, launches["sanity_train"], seconds = counted(
+            sanity_train.main, TOOL_STEPS, 0, dev)
+        want = {"cost_volume": 4 * TOOL_STEPS, "cost_volume_bwd": 4 * TOOL_STEPS}
+        emit({"phase": "tools_sanity_train", "steps": TOOL_STEPS, "final_epe": epe,
+              "lines": lines, "launches": launches["sanity_train"],
+              "seconds": seconds, "card": smi})
+        if launches["sanity_train"] != want:
+            failures.append(f"sanity_train launched {launches['sanity_train']}")
+
+        report, _, launches["bf16_compare"], seconds = counted(
+            bf16_compare.main, TOOL_STEPS, dev)
+        emit({"phase": "tools_bf16_compare", **report,
+              "launches": launches["bf16_compare"], "seconds": seconds, "card": smi})
+        values = [report[k] for k in ("final_epe_f32", "final_epe_bf16")]
+        values += [e for key in ("epe_curve_f32", "epe_curve_bf16")
+                   for _, e in report[key]]
+        values += [v for d in report["inference_flow_delta_px"].values()
+                   for v in d.values()]
+        if not np.isfinite(values).all():
+            failures.append("bf16_compare: a non-finite value")
+        want = {"cost_volume": 8 * TOOL_STEPS + 16, "cost_volume_bwd": 8 * TOOL_STEPS}
+        if launches["bf16_compare"] != want:
+            failures.append(f"bf16_compare launched {launches['bf16_compare']}")
+
+        frames = photo_frames(os.path.join(tmp, "frames"))
+        for mode, per in (("uflow", 8), ("elbo", 4)):
+            out_dir = os.path.join(tmp, f"real_frame_{mode}")
+            argv = ["--frames", frames, "--steps", str(TOOL_STEPS), "--size",
+                    "x".join(map(str, REAL_FRAME_SIZE)), "--out", out_dir,
+                    "--device", str(dev)] + (["--elbo"] if mode == "elbo" else [])
+            report, _, launches[f"real_frame_{mode}"], seconds = counted(
+                real_frame_train.main, argv)
+            files = sorted(os.listdir(out_dir))
+            emit({"phase": f"tools_real_frame_{mode}", **report, "files": files,
+                  "launches": launches[f"real_frame_{mode}"], "seconds": seconds,
+                  "card": smi})
+            want = {"cost_volume": per * (TOOL_STEPS + 2),
+                    "cost_volume_bwd": per * TOOL_STEPS}
+            if launches[f"real_frame_{mode}"] != want:
+                failures.append(f"real_frame {mode} launched "
+                                f"{launches[f'real_frame_{mode}']}, not {want}")
+            if mode == "uflow" and not (report["census_lph_final"]
+                                        < report["census_lph_init"]):
+                failures.append(f"real_frame: census {report['census_lph_init']} -> "
+                                f"{report['census_lph_final']}")
+            if mode == "elbo" and not (np.isfinite(report["loss_last"])
+                                       and "img1_img2_entropy.npy" in files):
+                failures.append(f"real_frame --elbo: loss {report['loss_last']}, "
+                                f"files {files}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+# natural_grad: the ELBO's bands at 1/4 of a 448x1024 frame, batch 8, 2
+# channels; each on the card in float32 against the CPU in float64 on the
+# same inputs, as a gap relative to the largest float64 element. Measured
+# (NVIDIA H100 80GB HBM3): identity_t 2.0e-7, identity_c 1.3e-7,
+# natural_gradient 1.3e-7, the derivatives 1.0e-7; each bound 5-10x that.
+NG_SHAPE = (8, 112, 256, 2)
+NG_RTOL = {"identity_t": 1e-6, "identity_c": 1e-6, "natural_gradient": 1e-6,
+           "derivatives": 1e-6, "inverse_l1norm": 1e-6}
+
+
+def ng_bands(shape, gen):
+    """A, B, C of a well-conditioned 3-band factor (diagonal in [1, 2],
+    couplings 0.3 N(0, 1)) and a right-hand side, float64 on the CPU."""
+    b, m, n, c = shape
+    return [torch.rand((b, m, n, c), generator=gen, dtype=torch.float64) + 1.0,
+            0.3 * torch.randn((b, m, n - 1, c), generator=gen, dtype=torch.float64),
+            0.3 * torch.randn((b, m - 1, n, c), generator=gen, dtype=torch.float64),
+            torch.randn((b, m, n, c), generator=gen, dtype=torch.float64)]
+
+
+def ng_gap(got, want) -> float:
+    return float((got.double().cpu() - want).abs().max() / want.abs().max())
+
+
+def phase_natural_grad(dev, smi):
+    """``ops/triag.py``'s natural-gradient identities (their backward for
+    cotangents on all four outputs), ``natural_gradient``, the penalties'
+    derivatives and ``inverse_l1norm`` on one 112x256 band, at NG_SHAPE,
+    float32 on the card against float64 on the CPU, each within NG_RTOL
+    and timed (CUDA events; ``inverse_l1norm`` on the host clock)."""
+    from arflow_tpu_torch.ops import penalties
+    from arflow_tpu_torch.ops.triag import (
+        inverse_l1norm,
+        natural_gradient,
+        natural_gradient_identity_c,
+        natural_gradient_identity_t,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 70)
+    args64 = ng_bands(NG_SHAPE, gen)
+    cots64 = [torch.randn(t.shape, generator=gen, dtype=torch.float64) for t in args64]
+    args32 = [t.float().to(dev) for t in args64]
+    cots32 = [t.float().to(dev) for t in cots64]
+    rows, failures = [], []
+
+    def check(name, got, want, ms):
+        gap = max(ng_gap(g, w) for g, w in zip(got, want))
+        rows.append({"name": name, "rel_gap": gap, "rtol": NG_RTOL[name], "ms": ms})
+        if not gap <= NG_RTOL[name]:
+            failures.append(f"{name}: {gap} > {NG_RTOL[name]}")
+
+    for name, fn in (("identity_t", natural_gradient_identity_t),
+                     ("identity_c", natural_gradient_identity_c)):
+        def backward(args, cots):
+            leaves = [t.clone().requires_grad_(True) for t in args]
+            torch.autograd.backward(fn(*leaves), cots)
+            return [t.grad for t in leaves]
+
+        want = backward(args64, cots64)
+        check(name, backward(args32, cots32), want,
+              cuda_ms(lambda: backward(args32, cots32), iters=5, warmup=1))
+    ga, gb, gc = (c for c in cots64[:3])
+    want = natural_gradient(ga, gb, gc, *args64[:3])
+    got32 = [c for c in cots32[:3]] + args32[:3]
+    check("natural_gradient", natural_gradient(*got32), want,
+          cuda_ms(lambda: natural_gradient(*got32), iters=20))
+    x64 = args64[3].square()
+    x32 = x64.float().to(dev)
+    fns = [penalties.get_penalty("identity", True), penalties.get_penalty("charbonnier", True)]
+    check("derivatives", [f(x32) for f in fns], [f(x64) for f in fns],
+          cuda_ms(lambda: [f(x32) for f in fns], iters=20))
+    band64 = [t[0, ..., 0] for t in args64[:3]]
+    band32 = [t.float().to(dev) for t in band64]
+    want_norm = inverse_l1norm(*band64)
+    t0 = time.perf_counter()
+    got_norm = inverse_l1norm(*band32)
+    torch.cuda.synchronize()
+    check("inverse_l1norm", [torch.tensor(got_norm, dtype=torch.float64)],
+          [torch.tensor(want_norm, dtype=torch.float64)],
+          1e3 * (time.perf_counter() - t0))
+    emit({"phase": "natural_grad", "shape": list(NG_SHAPE), "rows": rows,
+          "inverse_l1norm": [got_norm, want_norm], "card": smi})
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 # -- data parallelism and the JAX resume (phases ddp_train, jax_resume) -------
@@ -5626,14 +6055,20 @@ def main() -> int:
     lt_err, lt_rows, lt_grad_err, lt_grad_rows = timed(
         "pwclite_train_kernels", phase_pwclite_train_kernels, dev, smi)
     lite_train = timed("pwclite_train", phase_pwclite_train, dev, smi)
-    lite_cli = timed("pwclite_cli", phase_pwclite_cli, dev, smi)
+    lite_cli, lite_cli_bf16 = timed("pwclite_cli", phase_pwclite_cli, dev, smi)
     lite_launches["train"] = {k: v["cost_volume"] for k, v in lite_train.items()}
     lite_launches["cli"] = lite_cli["cost_volume"]
+    lite_launches["cli_bf16"] = lite_cli_bf16["cost_volume"]
     lite_bwd_launches = {"train": {k: v["cost_volume_bwd"]
                                    for k, v in lite_train.items()},
-                         "cli": lite_cli["cost_volume_bwd"]}
+                         "cli": lite_cli["cost_volume_bwd"],
+                         "cli_bf16": lite_cli_bf16["cost_volume_bwd"]}
     ddp_launches = timed("ddp_train", phase_ddp_train, cfg, dev, smi)
     resume_launches = timed("jax_resume", phase_jax_resume, cfg, dev, smi)
+    tk_err, tk_rows, tk_grad_err, tk_grad_rows = timed(
+        "tools_kernels", phase_tools_kernels, dev, smi)
+    tool_launches = timed("tools", phase_tools, dev, smi)
+    timed("natural_grad", phase_natural_grad, dev, smi)
     parallel_launches = {
         # one rank of 2 over gloo: the step check's step and DDP_STEPS steps
         # through UFlowTrainer with 4 rows each (8 + 8 per step); the world-
@@ -5650,7 +6085,7 @@ def main() -> int:
         "replaces": COST_VOLUME.replaces,
         "launches": launches["cost_volume"],
         "max_abs_err": max(max_err, prob_err, elbo_err, mse_err, lite_err,
-                           lt_err),
+                           lt_err, tk_err),
         # One 2-frame forward's worth at b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in per_level["b8"]),
         "plain_ms": sum(r["plain_ms"] for r in per_level["b8"]),
@@ -5726,9 +6161,9 @@ def main() -> int:
         # over 12 frames (10 per window) and one 5-frame forward with
         # with_bk (30); the b8 artifact (5) and the 3-frame streaming
         # artifact (10 per window); PWCLITE_TRAIN_STEPS steps of pwclite
-        # (10 per step) and pwclite_uflow (8), the remat step (20), and
-        # train_main's 6 steps and 2 validations (phases pwclite_train,
-        # pwclite_cli).
+        # (10 per step) and pwclite_uflow (8), the remat step (20), the same
+        # steps of each in bf16, and train_main's 6 steps and 2 validations
+        # in float32 and in bf16 (phases pwclite_train, pwclite_cli).
         "launches_pwclite": lite_launches,
         # One forward's worth at each PWC-Lite level set: 384x640 b8 and b1
         # and 448x1024 b1 (5 levels, C 192 .. 32), the PWCLiteUflow's at
@@ -5742,6 +6177,18 @@ def main() -> int:
         # Data parallelism and the JAX resume (phases ddp_train, jax_resume).
         "launches_parallel": {k: v["cost_volume"]
                               for k, v in parallel_launches.items()},
+        # The training tools (phase tools): train_main of chairs_uflow_mse.json
+        # on synth_dataset's pairs (6 steps at 384x512 b16, 6 validation
+        # pairs), sanity_train's 300 steps and bf16_compare's 2 x 300 at
+        # 128x160 b8 (4 per step, 16 held-out forwards), real_frame_train's
+        # 300 steps at 384x640 b1 (8 per step) and --elbo's (4), each with 2
+        # evaluations.
+        "launches_tools": {k: v["cost_volume"] for k, v in tool_launches.items()},
+        # One forward's worth at the tools' level shapes: PWCProbFlow at
+        # 128x160 b8, real_frame_train's at 384x640 b1 (one direction) and
+        # b2 (--elbo, both directions).
+        **{f"{what}_{key}": sum(r[what] for r in tk_rows[key])
+           for key in tk_rows for what in ("ms", "plain_ms", "bound_ms")},
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",
@@ -5749,7 +6196,8 @@ def main() -> int:
         "replaces": COST_VOLUME_BWD.replaces,
         # TRAIN_STEPS train steps: 8 per step (4 levels x 2 directions).
         "launches": train_launches["cost_volume_bwd"],
-        "max_abs_err": max(grad_err, elbo_grad_err, mse_grad_err, lt_grad_err),
+        "max_abs_err": max(grad_err, elbo_grad_err, mse_grad_err, lt_grad_err,
+                           tk_grad_err),
         # One direction's worth at 256x448 b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in grad_rows),
         "plain_ms": sum(r["plain_ms"] for r in grad_rows),
@@ -5773,14 +6221,17 @@ def main() -> int:
                           for k in ("train_step", "elbo_step")},
         "launches_remat": remat_launches["cost_volume_bwd"],
         # The PWC-Lite family's training: PWCLITE_TRAIN_STEPS steps of
-        # pwclite (10 per step) and pwclite_uflow (8), the remat step (10),
-        # train_main's 6 steps; one direction's backward at their training
-        # levels, 256x448 b8.
+        # pwclite (10 per step) and pwclite_uflow (8), in float32 and bf16,
+        # the remat step (10), train_main's 6 steps in float32 and bf16; one
+        # direction's backward at their training levels, 256x448 b8.
         "launches_pwclite": lite_bwd_launches,
         **{f"{what}_{key}": sum(r[what] for r in lt_grad_rows[key])
            for key in lt_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
         "launches_parallel": {k: v["cost_volume_bwd"]
                               for k, v in parallel_launches.items()},
+        "launches_tools": {k: v["cost_volume_bwd"] for k, v in tool_launches.items()},
+        **{f"{what}_{key}": sum(r[what] for r in tk_grad_rows[key])
+           for key in tk_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
     }]})
     # The card's name and power limit as nvidia-smi prints them, on a line
     # of their own before the result line.

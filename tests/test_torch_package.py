@@ -44,9 +44,9 @@ print(" ".join(names), "|", bad)
 
 # The entry points, the host-side pipeline, the probabilistic path, its
 # ELBO and MSE training, the export, stream and penalty tools, the native
-# library's loader, the augmentation on the card, the flow images and the
-# host allocator, which no earlier module imported: they must be among the
-# modules checked.
+# library's loader, the augmentation on the card, the flow images, the
+# host allocator and the training tools, which no earlier module imported:
+# they must be among the modules checked.
 ENTRY_AND_DATA = [
     "arflow_tpu_torch.cli", "arflow_tpu_torch.data",
     "arflow_tpu_torch.data.datasets", "arflow_tpu_torch.data.get_dataset",
@@ -66,6 +66,9 @@ ENTRY_AND_DATA = [
     "arflow_tpu_torch.native", "arflow_tpu_torch.data.device_aug",
     "arflow_tpu_torch.utils.viz", "arflow_tpu_torch.utils.hostmem",
     "arflow_tpu_torch.parallel", "arflow_tpu_torch.parallel.mesh",
+    "arflow_tpu_torch.tools.taylor_compare", "arflow_tpu_torch.tools.synth_dataset",
+    "arflow_tpu_torch.tools.sanity_train", "arflow_tpu_torch.tools.bf16_compare",
+    "arflow_tpu_torch.tools.real_frame_train",
 ]
 
 

@@ -140,11 +140,12 @@ def _cos(a, b) -> float:
     return float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
 
 
-def bf16_step_gaps(model_c, loss_c, noise, seed=8):
+def bf16_step_gaps(model_c, loss_c, noise, seed=8, size=(64, 96)):
     """One train step of ``model_c`` / ``loss_c`` (``noise``: the ELBO
     loss's injected draws, numpy, or None) in bfloat16, both packages, and
-    the port's float32 step, from the same JAX weights on a seeded 1x64x96
-    pair; checks and returns the gaps.
+    the port's float32 step, from the same JAX weights on a seeded pair of
+    1 x ``size`` (the PWC-Lite family's six levels need sides that 64
+    divides); checks and returns the gaps.
 
     - The loss: the port's bfloat16 loss within 2e-3 (relative to the
       float32 one) of JAX's bfloat16 loss.
@@ -167,8 +168,8 @@ def bf16_step_gaps(model_c, loss_c, noise, seed=8):
     from torch_mixture_util import image_pair
     from torch_port_util import draw_jax_params
 
-    params = draw_jax_params(model_c, with_bk=True)
-    im1, im2 = (x.astype(np.float32) for x in image_pair(1, seed))
+    params = draw_jax_params(model_c, with_bk=True, size=size)
+    im1, im2 = (x.astype(np.float32) for x in image_pair(1, seed, *size))
     sd = state_dict_from_jax(params, Config(model_c))
     a, b = torch.from_numpy(im1), torch.from_numpy(im2)
     rs = np.random.RandomState(seed + 1)

@@ -44,13 +44,14 @@ def init_shapes(module, *args, **init_kwargs):
     return _INIT_SHAPES[key]
 
 
-def draw_jax_params(model_cfg, seed=0, **init_kwargs):
+def draw_jax_params(model_cfg, seed=0, size=(H, W), **init_kwargs):
     """Full-width JAX parameters of ``model_cfg`` as numpy float32, drawn
     from ``RandomState(seed)`` in the tree that ``init`` makes (its shapes
-    from ``init_shapes``): xavier-uniform kernels, as the init draws them,
-    and small nonzero biases, so that the bias conversion is exercised
-    too."""
-    img = jax.ShapeDtypeStruct((1, H, W, 3), jnp.float32)
+    from ``init_shapes`` on images of ``size``, which the PWC-Lite
+    family's six levels need divisible by 64): xavier-uniform kernels, as
+    the init draws them, and small nonzero biases, so that the bias
+    conversion is exercised too."""
+    img = jax.ShapeDtypeStruct((1, *size, 3), jnp.float32)
     shapes = init_shapes(jax_get_model(JaxConfig(model_cfg)), img, img,
                          **init_kwargs)["params"]
     rs = np.random.RandomState(seed)
