@@ -11,6 +11,7 @@ offline evaluation of its outputs, as ``arflow_tpu/cli.py`` has them.
     arflow-torch-stream --artifact model.afx --frames dir/ [--out flo/]
     arflow-torch-fit-penalty -c cfg.json --penalty smooth|data
     arflow-torch-to-torch -c cfg.json -m ckpt.msgpack -o ckpt.pth.tar
+    arflow-torch-to-torch -c cfg.json -m Chairs_ckpt_orbax/ -o ckpt.pth.tar
     python -m arflow_tpu_torch.cli train|inference|evaluate-flo|export|stream|fit-penalty|to-torch ...
 
 Data-parallel training runs one process per card, each started with the
@@ -28,7 +29,9 @@ Every command that runs a model or a loss does so on the CUDA device unless
 ``--device`` (``device=``) says otherwise, and raises without a card instead
 of dropping to the CPU; the evaluation and the conversion are host code. A
 checkpoint given with ``-m`` is a ``.pth(.tar)`` or the JAX package's
-``.msgpack``. Inference, export, streaming and conversion serve every model
+``.msgpack``; ``to-torch`` also takes the JAX package's orbax directory
+(with the ``tensorstore`` package), the one command of the JAX package
+that reads one. Inference, export, streaming and conversion serve every model
 type of ``models/__init__.py``, the PWC-Lite family included (a ``model``
 section with ``"type": "pwclite"`` and its ``n_frames``, ``"pwclite_prob"``
 or ``"pwclite_uflow"``; ``-m`` a reference ``.pth.tar``); the 3-frame
@@ -566,25 +569,31 @@ def stream_cli(argv=None):
 
 
 def to_torch_cli(argv=None):
-    """Convert the JAX package's msgpack checkpoint into a reference-format
-    ``.pth.tar`` (``{'epoch', 'state_dict'}``), as ``arflow-to-torch``
-    writes it; ``load_pretrained`` and the reference's strict
-    ``load_state_dict`` read it. Needs neither flax nor a card. Returns
-    the path written."""
+    """Convert the JAX package's checkpoint, a msgpack file or an orbax
+    directory, into a reference-format ``.pth.tar`` (``{'epoch',
+    'state_dict'}``), as ``arflow-to-torch`` writes it; ``load_pretrained``
+    and the reference's strict ``load_state_dict`` read it. Needs neither
+    flax nor a card; an orbax directory needs the ``tensorstore`` package.
+    Returns the path written."""
     parser = argparse.ArgumentParser(prog="arflow-torch-to-torch")
     parser.add_argument("-c", "--config", required=True,
                         help="config naming the model family (cfg.model)")
     parser.add_argument("-m", "--model", required=True,
-                        help="the JAX package's checkpoint (.msgpack)")
+                        help="the JAX package's checkpoint (.msgpack) or "
+                             "orbax directory (needs tensorstore)")
     parser.add_argument("-o", "--output", required=True,
                         help=".pth(.tar) file to write")
     args = parser.parse_args(argv)
 
     from arflow_tpu_torch.models.weights import jax_variables, save_torch_checkpoint
-    from arflow_tpu_torch.training.checkpoint import load_jax_checkpoint
+    from arflow_tpu_torch.training.checkpoint import (
+        load_jax_checkpoint,
+        load_orbax_checkpoint,
+    )
 
     cfg = load_config(args.config)
-    state = load_jax_checkpoint(args.model)
+    state = (load_orbax_checkpoint(args.model) if os.path.isdir(args.model)
+             else load_jax_checkpoint(args.model))
     epoch = int(state.get("epoch", 0))
     save_torch_checkpoint(args.output, jax_variables(state), cfg.model,
                           epoch=epoch)

@@ -28,6 +28,8 @@ numpy) into this package's ``state_dict``:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -347,7 +349,7 @@ def load_pretrained(path: str, model_cfg, device="cuda"):
 
     dev = resolve_device(device)
     model = get_model(model_cfg, device="cpu")
-    if path.endswith(".msgpack"):
+    if path.endswith(".msgpack") or os.path.isdir(path):  # a directory raises
         sd = state_dict_from_jax(jax_variables(load_jax_checkpoint(path)),
                                  model_cfg)
     elif path.endswith((".pth", ".pth.tar", ".tar", ".pt")):

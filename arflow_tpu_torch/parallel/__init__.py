@@ -1,8 +1,7 @@
 """Data parallelism over ``torch.distributed`` (port of
-``arflow_tpu/parallel``). ``parallel/spatial.py``, the JAX package's
-H-sharding through GSPMD's automatic halos, has no counterpart here: no
-PyTorch partitioner takes the custom cost-volume op (``ROADMAP.md`` queue 1,
-'parallel')."""
+``arflow_tpu/parallel``), and the spatial (image-height) sharding of the
+UFlow forward with hand-written row halos (``parallel/spatial.py``; its
+training is ``ROADMAP.md`` queue 1, 'parallel')."""
 
 from arflow_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -25,12 +24,12 @@ from arflow_tpu_torch.parallel.mesh import (  # noqa: F401
     world_size,
 )
 
-SPATIAL_NOT_PORTED = (
-    "spatial sharding (arflow_tpu/parallel/spatial.py) is not ported: it "
-    "shards H through GSPMD's automatic halos, and no PyTorch partitioner "
-    "takes the custom cost-volume op; ROADMAP.md queue 1, 'parallel'")
-
-
-def make_spatial_mesh(*args, **kwargs):
-    """Raises: see ``SPATIAL_NOT_PORTED``."""
-    raise NotImplementedError(SPATIAL_NOT_PORTED)
+from arflow_tpu_torch.parallel.spatial import (  # noqa: F401
+    SPATIAL_NOT_PORTED,
+    gather_flows,
+    make_spatial_mesh,
+    row_range,
+    shard_images_spatial,
+    spatial_forward,
+    spatial_image_sharding,
+)

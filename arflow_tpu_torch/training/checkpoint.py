@@ -25,8 +25,13 @@ resume a JAX run (``load_checkpoint`` of a ``.msgpack``, then
 of the optax chain in the optimizer's layout and dtype, the schedule's count
 and the counters. The JAX step key (``fold_in(PRNGKey(seed + 7919),
 i_iter)``) has no torch counterpart: the resumed run's generators are
-seeded as a fresh port run seeds them. Its orbax directories are not
-ported.
+seeded as a fresh port run seeds them.
+
+``load_orbax_checkpoint`` reads the directories that the JAX package's
+``checkpoint_backend: orbax`` writes (orbax's ``StandardCheckpointer``)
+with the ``tensorstore`` package alone, for ``arflow-torch-to-torch``: the
+JAX package reads such a directory nowhere else, so ``--resume`` and
+``-m`` of a directory raise, as in JAX.
 """
 
 from __future__ import annotations
@@ -41,6 +46,12 @@ import torch
 # arrays and numpy scalars; its complex numbers never occur in a checkpoint.
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 _CHUNKED = "__msgpack_chunked_array__"
+
+ORBAX_ONLY_IN_TO_TORCH = (
+    "{path}: an orbax checkpoint directory. The JAX package reads orbax "
+    "directories only in to-torch, and so does the port "
+    "(arflow-torch-to-torch -m DIR); --resume and -m take a .msgpack or a "
+    ".pth.tar: ROADMAP.md queue 1, 'factories and the CLI surface'")
 
 
 def save_checkpoint(save_dir, state: dict, prefix: str,
@@ -60,7 +71,8 @@ def load_checkpoint(path: str) -> dict:
     """A checkpoint written by ``save_checkpoint``, its tensors on the CPU;
     or for the JAX package's ``.msgpack`` its counters ``epoch``,
     ``i_iter`` and ``best_error`` and its whole tree as ``jax_state``
-    (which ``restore_jax_state`` applies). An orbax directory raises."""
+    (which ``restore_jax_state`` applies). An orbax directory raises
+    (``load_jax_checkpoint``)."""
     if str(path).endswith(".msgpack") or os.path.isdir(path):
         tree = load_jax_checkpoint(path)
         return {"epoch": int(tree["epoch"]), "i_iter": int(tree["i_iter"]),
@@ -177,9 +189,52 @@ def load_jax_checkpoint(path: str) -> dict:
     import msgpack
 
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: the JAX package's orbax checkpoints are not ported yet: "
-            "ROADMAP.md queue 1, 'factories and the CLI surface'")
+        raise NotImplementedError(ORBAX_ONLY_IN_TO_TORCH.format(path=path))
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return _unchunk(tree)
+
+
+def load_orbax_checkpoint(path: str) -> dict:
+    """The tree of a JAX package orbax checkpoint directory, as
+    ``arflow_tpu.training.checkpoint.load_checkpoint_orbax`` restores it:
+    nested dicts of numpy arrays (scalars 0-d), an empty dict where orbax
+    kept none (optax's empty states). Read with ``tensorstore`` alone
+    (imported here): the leaves listed in ``_METADATA``'s
+    ``tree_metadata``, each a zarr (v2) array under its keys joined by
+    dots, in the directory's OCDBT store; another layout raises."""
+    import json
+
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: reading an orbax checkpoint directory needs the "
+            "tensorstore package, which is not installed") from e
+
+    root = os.path.abspath(path)
+    with open(os.path.join(root, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
+        raise ValueError(f"{path}: not an OCDBT store of zarr v2 arrays")
+    tree = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        value = entry["value_metadata"]
+        kind = value["value_type"]
+        if value.get("skip_deserialize"):
+            if kind != "Dict":
+                raise ValueError(f"{path}: an empty {kind} at {keys}")
+            leaf = {}
+        elif kind == "np.ndarray":
+            kvstore = {"driver": "ocdbt", "base": f"file://{root}/",
+                       "path": ".".join(keys) + "/"}
+            leaf = np.asarray(ts.open({"driver": "zarr", "kvstore": kvstore},
+                                      open=True).result().read().result())
+        else:
+            raise ValueError(f"{path}: value type {kind!r} at {keys}")
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return tree

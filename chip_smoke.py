@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --overfit-spread [variant ...]
+    python3 chip_smoke.py --forward-batches
 
 Builds every kernel of the port from ``arflow_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
@@ -78,7 +79,10 @@ and ``bf16_compare``'s 300-step runs, ``real_frame_train`` and its
 ``--elbo`` mode at 384x640 on the tests' generated frames); the
 natural-gradient machinery (phase natural_grad: both identities'
 backward, ``natural_gradient``, the penalties' derivatives and
-``inverse_l1norm`` in float32 against float64 on the CPU); and the
+``inverse_l1norm`` in float32 against float64 on the CPU); the spatial
+(image-height) forward of ``parallel/spatial.py`` (phase spatial: 2, 4
+and 8 gloo ranks on the card at 384x640, the kernel at every rank's band,
+the gathered flows against the one-process forward and float64); and the
 training input path (phase input_path, at 384x512: the native host library against the numpy hue and decode, the
 host's ms per sample by stage with the hue in numpy and native, the
 photometric augmentation on the card against the CPU's with its launches,
@@ -92,6 +96,8 @@ the card's name and power limit (``nvidia-smi``) and ends with one line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
 
+With ``--forward-batches`` it runs only ``forward_batches``: the 384x640
+float32 forward timed at batch 1, 2, 4 and 8, and profiled at batch 2.
 With ``--overfit-spread`` it runs only ``overfit_spread``: the
 ``pwclite_cli`` phase's overfit, repeated under several choices of the
 card's algorithms, at the config's learning rate and at the check's.
@@ -5986,6 +5992,230 @@ def overfit_spread(dev, variants) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SPATIAL_RANKS = 8  # gloo ranks on the one card; a cell's mesh takes its first S
+SPATIAL_CELLS = ((2, 1), (2, 2), (4, 1), (4, 2), (8, 1))  # (S, batch) at HxW
+
+
+def spatial_images(dev):
+    """The spatial phase's NHWC pair at 384x640 b2, the same in every
+    process."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    return shifted_pair(2, H, W, 2, 3, gen, dev)
+
+
+def spatial_bands(s, b):
+    """Per UFlow level 1-4 of an HxW input, the (B, C, rows, W) that each
+    of ``s`` space ranks hands the cost-volume kernel: its band of the
+    level with MD halo rows above and below."""
+    from arflow_tpu_torch.parallel import row_range
+
+    return [[(b, 32, row_range(h, s, r)[1] - row_range(h, s, r)[0] + 2 * MD, w)
+             for r in range(s)] for _, _, h, w in level_shapes(b)]
+
+
+def spatial_worker(rank, world, port, out, device="cuda:0") -> None:
+    """One rank of phase spatial (``python -c "import chip_smoke as c;
+    c.spatial_worker(...)"``): joins a gloo group of ``world`` ranks on
+    ``device``, makes the spatial mesh of each cell's first S ranks, and for
+    each cell it belongs to runs ``spatial_forward`` (both directions) on
+    its part of the pair: once to warm up (the first call of a process
+    loads its kernels; a cell's ranks wait for the slowest), then once
+    timed, with the launches counted from 0 and the all-reduces counted;
+    gathers the flows (rank 0 keeps them). Also its seconds from entry to joining the group, to the model
+    and meshes, and per cell."""
+    from arflow_tpu_torch.parallel import (
+        gather_flows,
+        initialize_multihost,
+        make_spatial_mesh,
+        shard_images_spatial,
+        spatial_forward,
+    )
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"localhost:{port}", world, rank, backend="gloo",
+                         device=dev)
+    seconds = {"join": time.perf_counter() - t0}
+    model = get_model(load_config(CONFIG).model, device=dev, seed=SEED)
+    img1, img2 = spatial_images(dev)
+    meshes = {s: make_spatial_mesh(s, device=dev, ranks=range(s))
+              for s in sorted({s for s, _ in SPATIAL_CELLS})}
+    seconds["model_and_meshes"] = time.perf_counter() - t0 - seconds["join"]
+    calls = []
+    all_reduce = torch.distributed.all_reduce
+
+    def counted(t, *a, **k):
+        t0 = time.perf_counter()
+        res = all_reduce(t, *a, **k)
+        calls.append((t.numel() * t.element_size(), time.perf_counter() - t0))
+        return res
+
+    cells = {}
+    for s, b in SPATIAL_CELLS:
+        mesh = meshes[s]
+        if mesh is None:
+            continue
+        t_cell = time.perf_counter()
+        x1, x2 = shard_images_spatial(mesh, img1[:b], img2[:b])
+        run = lambda: spatial_forward(model, mesh, x1, x2)  # noqa: E731
+        run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        calls.clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        start.record()
+        with mock.patch.object(torch.distributed, "all_reduce", counted):
+            res = run()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k.name: k.launches for k in KERNELS}
+        flows = gather_flows(mesh, res)
+        cells[f"S{s}_b{b}"] = {
+            "launches": launches,
+            "rows": [f.shape[1] for f in res["flows_fw"]],
+            "allreduces": len(calls),
+            "allreduce_mb": sum(n for n, _ in calls) / 2 ** 20,
+            "allreduce_ms": 1e3 * sum(t for _, t in calls),
+            "wall_ms": wall_ms, "event_ms": start.elapsed_time(end),
+            "flows": ({k: [f.cpu() for f in v] for k, v in flows.items()}
+                      if mesh.rank == 0 else None)}
+        seconds[f"S{s}_b{b}"] = time.perf_counter() - t_cell
+    torch.save({"rank": rank, "cells": cells, "seconds": seconds}, out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase_spatial(dev, smi):
+    """The H-split spatial forward (``parallel/spatial.py``) at full width,
+    384x640: S = 2 and 4 space ranks at b1 and b2 and S = 8 at b1 (the 12
+    rows of the 1/32 level split 1 and 2), gloo ranks on the one card
+    (NCCL refuses two ranks on one card). The cost-volume kernel against
+    its plain version at every rank's halo-extended band and timed at the
+    largest band of each level; 4 launches per direction on every rank;
+    the gathered flows against the one-process forward on the card and,
+    with it, against the float64 model with the plain cost volume (the
+    spatial flows' error at most twice the one-process flows' plus 1e-5 of
+    the largest flow: the float32 gap between the two is reduction order
+    and cuDNN's picks for other shapes); the spatial forward's wall and
+    event times beside the one-process forward's. Returns the launches per
+    cell and rank, the kernel rows and the largest kernel error."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bands = {f"S{s}_b{b}": spatial_bands(s, b) for s, b in SPATIAL_CELLS}
+    checks = sorted({shape for levels in bands.values() for level in levels
+                     for shape in level})
+    max_err = check_forward([(shape, MD, 0) for shape in checks], gen, dev)
+    rows = time_forward({f"spatial_{cell}": [max(level, key=lambda t: t[2])
+                                             for level in levels]
+                         for cell, levels in bands.items()}, gen, dev, smi)
+
+    tmp = tempfile.mkdtemp(prefix="spatial_")
+    try:
+        port = free_port()
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(SPATIAL_RANKS)]
+        t0 = time.perf_counter()
+        run_ranks([[sys.executable, "-c",
+                    f"import chip_smoke as c; c.spatial_worker({r}, "
+                    f"{SPATIAL_RANKS}, {port}, {outs[r]!r}, {str(dev)!r})"]
+                   for r in range(SPATIAL_RANKS)], 300)
+        ranks_s = time.perf_counter() - t0
+        loaded = [torch.load(o, weights_only=False) for o in outs]
+        got = [g["cells"] for g in loaded]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the one-process forwards timed first, in a cache emptied of the
+    # phase's earlier tensors; then the float64 references
+    torch.cuda.empty_cache()
+    model = get_model(load_config(CONFIG).model, device=dev, seed=SEED)
+    img1, img2 = spatial_images(dev)
+    batches = sorted({b for _, b in SPATIAL_CELLS})
+    one, one_ms, ref = {}, {}, {}
+    with torch.inference_mode():
+        for b in batches:
+            x1, x2 = img1[:b], img2[:b]
+            one[b] = model(x1, x2)
+            one_ms[b] = cuda_ms(lambda: model(x1, x2), iters=5)
+        model64 = copy.deepcopy(model).double()
+        with mock.patch.object(uflow_module, "compute_cost_volume",
+                               compute_cost_volume_reference):
+            for b in batches:
+                ref[b] = model64(img1[:b].double(), img2[:b].double())
+
+    launches, failures = {}, []
+    for s, b in SPATIAL_CELLS:
+        cell = f"S{s}_b{b}"
+        mine = [g[cell] for g in got[:s]]
+        flows = mine[0]["flows"]
+        launches[cell] = [m["launches"]["cost_volume"] for m in mine]
+        gaps = {"vs_one": 0.0, "spatial_vs_f64": 0.0, "one_vs_f64": 0.0}
+        scale = 0.0
+        for key in ("flows_fw", "flows_bw"):
+            for f, o, r in zip(flows[key], one[b][key], ref[b][key]):
+                f = f.to(dev)
+                if f.shape != o.shape or not bool(torch.isfinite(f).all()):
+                    failures.append(f"{cell} {key}: {tuple(f.shape)}, "
+                                    f"finite {bool(torch.isfinite(f).all())}")
+                    continue
+                gaps["vs_one"] = max(gaps["vs_one"], max_abs(f, o))
+                gaps["spatial_vs_f64"] = max(gaps["spatial_vs_f64"],
+                                             max_abs(f.double(), r))
+                gaps["one_vs_f64"] = max(gaps["one_vs_f64"], max_abs(o.double(), r))
+                scale = max(scale, float(r.abs().max()))
+        tol = 2 * gaps["one_vs_f64"] + 1e-5 * max(scale, 1.0)
+        row = {"phase": "spatial", "cell": cell, "shape": [b, H, W],
+               "mesh": [1, s], "launches_per_rank": launches[cell],
+               "rows_per_rank": [m["rows"] for m in mine],
+               **gaps, "max_abs_flow": scale, "atol_vs_f64": tol,
+               "wall_ms_per_rank": [m["wall_ms"] for m in mine],
+               "event_ms_per_rank": [m["event_ms"] for m in mine],
+               "allreduces": mine[0]["allreduces"],
+               "allreduce_mb": mine[0]["allreduce_mb"],
+               "allreduce_ms_per_rank": [m["allreduce_ms"] for m in mine],
+               "one_process_ms": one_ms[b], "card": smi}
+        emit(row)
+        if not gaps["spatial_vs_f64"] <= tol:
+            failures.append(f"{cell}: error {gaps['spatial_vs_f64']} > {tol}")
+        if any(n != 2 * 4 for n in launches[cell]):
+            failures.append(f"{cell}: cost_volume launches {launches[cell]}, "
+                            "not 4 per direction on every rank")
+    emit({"phase": "spatial_ranks", "seconds": ranks_s, "ranks": SPATIAL_RANKS,
+          "rank_seconds": [g["seconds"] for g in loaded]})
+    if failures:
+        raise AssertionError("spatial: " + "; ".join(failures))
+    return {"launches": launches, "rows": rows, "max_err": max_err}
+
+
+def forward_batches(dev, smi) -> None:
+    """The 384x640 float32 forward of ``CONFIG``'s model at batch 1, 2, 4
+    and 8, each without and with ``with_bk`` (CUDA events, 5 calls after a
+    warm-up), then profiled at batch 2 on ``spatial_images``: phase
+    ``spatial``'s one-process batch-2 forward took 40 times its batch-1
+    time."""
+    model = get_model(load_config(CONFIG).model, device=dev, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    img1, img2 = shifted_pair(8, H, W, 2, 3, gen, dev)
+    with torch.inference_mode():
+        for n in (1, 2, 4, 8):
+            for bk in (False, True):
+                emit({"phase": "forward_batches", "batch": n, "with_bk": bk,
+                      "ms": cuda_ms(lambda: model(img1[:n], img2[:n], with_bk=bk),
+                                    iters=5),
+                      "card": smi})
+        s1, s2 = spatial_images(dev)
+        ms = cuda_ms(lambda: model(s1, s2), iters=3)
+        prof = profile_window(lambda: model(s1, s2), 2, ms)
+    emit({"phase": "forward_batches_profile", "batch": 2, "with_bk": True,
+          **{k: prof[k] for k in ("device_ms_per_call", "busy_share",
+                                  "kernel_launches_per_call", "conv_ms_per_call",
+                                  "top_kernels")}, "card": smi})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5993,6 +6223,12 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if sys.argv[1:2] == ["--forward-batches"]:
+        smi = phase_device()
+        phase_build()
+        forward_batches(dev, smi)
+        print(smi)
+        return 0
     if sys.argv[1:2] == ["--overfit-spread"]:
         variants = sys.argv[2:] or list(SPREAD_REPEATS)
         smi = phase_device()
@@ -6069,6 +6305,7 @@ def main() -> int:
         "tools_kernels", phase_tools_kernels, dev, smi)
     tool_launches = timed("tools", phase_tools, dev, smi)
     timed("natural_grad", phase_natural_grad, dev, smi)
+    spatial = timed("spatial", phase_spatial, dev, smi)
     parallel_launches = {
         # one rank of 2 over gloo: the step check's step and DDP_STEPS steps
         # through UFlowTrainer with 4 rows each (8 + 8 per step); the world-
@@ -6085,7 +6322,7 @@ def main() -> int:
         "replaces": COST_VOLUME.replaces,
         "launches": launches["cost_volume"],
         "max_abs_err": max(max_err, prob_err, elbo_err, mse_err, lite_err,
-                           lt_err, tk_err),
+                           lt_err, tk_err, spatial["max_err"]),
         # One 2-frame forward's worth at b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in per_level["b8"]),
         "plain_ms": sum(r["plain_ms"] for r in per_level["b8"]),
@@ -6189,6 +6426,13 @@ def main() -> int:
         # b2 (--elbo, both directions).
         **{f"{what}_{key}": sum(r[what] for r in tk_rows[key])
            for key in tk_rows for what in ("ms", "plain_ms", "bound_ms")},
+        # The spatial forward (phase spatial): per cell (S space ranks,
+        # batch) at 384x640, each rank's launches in one forward of both
+        # directions (4 per direction); one direction's worth at the largest
+        # halo-extended band of each level.
+        "launches_spatial": spatial["launches"],
+        **{f"{what}_{key}": sum(r[what] for r in spatial["rows"][key])
+           for key in spatial["rows"] for what in ("ms", "plain_ms", "bound_ms")},
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",

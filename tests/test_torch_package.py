@@ -17,7 +17,11 @@ import torch
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.losses import get_loss
 from arflow_tpu_torch.models import get_model
-from arflow_tpu_torch.parallel import make_mesh, make_spatial_mesh
+from arflow_tpu_torch.parallel import (
+    make_mesh,
+    make_spatial_mesh,
+    spatial_forward,
+)
 from arflow_tpu_torch.serving import StreamingFlowEngine
 from arflow_tpu_torch.training import get_trainer
 from torch_data_util import few_torch_threads  # noqa: F401  (fixture)
@@ -66,6 +70,7 @@ ENTRY_AND_DATA = [
     "arflow_tpu_torch.native", "arflow_tpu_torch.data.device_aug",
     "arflow_tpu_torch.utils.viz", "arflow_tpu_torch.utils.hostmem",
     "arflow_tpu_torch.parallel", "arflow_tpu_torch.parallel.mesh",
+    "arflow_tpu_torch.parallel.spatial",
     "arflow_tpu_torch.tools.taylor_compare", "arflow_tpu_torch.tools.synth_dataset",
     "arflow_tpu_torch.tools.sanity_train", "arflow_tpu_torch.tools.bf16_compare",
     "arflow_tpu_torch.tools.real_frame_train",
@@ -168,9 +173,13 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     """Training runs (``train=True`` and the ``uflow`` trainer); each
     feature of the JAX trainer that the port does not have yet raises where
     it would take effect and names its ``ROADMAP.md`` item, instead of
-    being skipped: resuming from the JAX package's orbax checkpoint
-    directory among them, and its spatial sharding. Saving an orbax
-    checkpoint raises. The switches ported since (``remat``,
+    being skipped: training under a spatial mesh among them (the mesh
+    itself and the spatial forward are ported: ``make_spatial_mesh()`` is
+    the (1, 1) mesh without a group, and raises where the ranks do not
+    factor; ``test_torch_spatial.py`` holds the forward). Resuming from
+    the JAX package's orbax checkpoint directory raises and says that the
+    JAX package reads one only in ``to-torch`` (which the port's reads:
+    ``test_torch_orbax.py``). Saving an orbax checkpoint raises. The switches ported since (``remat``,
     ``nan_revert``, ``stage1``) train and take effect
     (``test_torch_train_switches.py`` holds them), and so do ``optim:
     adamw`` (``test_torch_adamw.py``), the uflow trainer's
@@ -202,6 +211,8 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     full["train"] = train
     full = Config(full)
     error, match = ((ValueError, "JAX package") if case == "checkpoint_save"
+                    else (NotImplementedError, "only in to-torch")
+                    if case == "resume"
                     else (NotImplementedError, "ROADMAP.md"))
     trainer_name = "uflow"
     if case == "trainer_uflow_elbo":  # the ELBO trainer refuses it too
@@ -215,7 +226,14 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
         if case == "loss_uflow_elbo":  # the opt-in Taylor warp
             _taylor_elbo_step()
         if case == "spatial":
-            make_spatial_mesh()
+            mesh = make_spatial_mesh()
+            assert mesh.shape == (1, 1) and mesh.group is None
+            assert mesh.axis_names == ("data", "space")
+            with pytest.raises(ValueError, match="do not factor"):
+                make_spatial_mesh(n_spatial=3)
+            img = torch.rand(1, 64, 64, 3)
+            spatial_forward(get_model(full.model, device="cpu"), mesh, img,
+                            img, train=True)
         model = get_model(full.model, device="cpu")
         trainer = get_trainer(trainer_name)(
             [_batch()], valid, model, get_loss(full.loss),

@@ -21,7 +21,9 @@ case is a dict:
 
 The result of a rank holds the step records (the trainer's metric rows),
 the model's state, the optimizer's state by parameter name, its count and
-the counters. Worker processes import no JAX."""
+the counters. ``spatial_case`` is a case of another kind: the spatial
+forward of a model on the ranks' rows of a pair of images. Worker
+processes import no JAX."""
 
 import atexit
 import json
@@ -368,6 +370,47 @@ def mesh_case(case: dict, mesh=None) -> dict:
     out["sum"], out["grad"] = y.detach(), x.grad
     with data_parallel(mesh.group):
         out["gathered"] = gather_rows(torch.full((2, 1), float(mesh.rank)))
+    return out
+
+
+def spatial_case(case: dict, mesh=None) -> dict:
+    """``parallel.spatial_forward`` of ``case['model']`` (weights from
+    ``case['state_dict']``) on this rank's part of ``case['img1']`` /
+    ``case['img2']`` (NHWC float32 arrays) over a spatial mesh of every
+    rank with ``case['n_spatial']`` splitting the height, in each dtype of
+    ``case['dtypes']`` (``"float64"``, ``"float32"``), with_bk; per dtype
+    the shapes of this rank's rows of each flow and the flows gathered
+    (numpy). Also the mesh's shape, axes and this rank's coordinates, and
+    the error of a mesh whose ranks do not factor."""
+    from arflow_tpu_torch import Config
+    from arflow_tpu_torch.models import get_model
+    from arflow_tpu_torch.parallel import (
+        gather_flows,
+        make_spatial_mesh,
+        shard_images_spatial,
+        spatial_forward,
+    )
+    from arflow_tpu_torch.parallel.spatial import mesh_coords
+
+    torch.set_num_threads(1)
+    sp = make_spatial_mesh(case["n_spatial"], device="cpu")
+    out = {"shape": sp.shape, "axes": sp.axis_names,
+           "coords": mesh_coords(sp)}
+    try:
+        make_spatial_mesh(3, device="cpu")
+    except ValueError as e:
+        out["refusal"] = str(e)
+    state = torch.load(case["state_dict"], weights_only=True)
+    for name in case["dtypes"]:
+        model = get_model(Config(case["model"]), device="cpu")
+        model.load_state_dict(state, strict=True)
+        model = model.to(getattr(torch, name))
+        img1, img2 = (np.asarray(case[k], name) for k in ("img1", "img2"))
+        res = spatial_forward(model, sp, *shard_images_spatial(sp, img1, img2))
+        out[name] = {
+            "rows": {k: [tuple(f.shape) for f in v] for k, v in res.items()},
+            "flows": {k: [f.numpy() for f in v]
+                      for k, v in gather_flows(sp, res).items()}}
     return out
 
 
