@@ -24,15 +24,20 @@ import torch
 from arflow_tpu_torch.ops.warp import flow_to_warp, flow_warp
 
 
-def compute_range_map(flow: torch.Tensor) -> torch.Tensor:
-    """How often each pixel is sampled by ``flow`` (B,2,H,W) -> (B,1,H,W)."""
-    return get_corresponding_map(flow_to_warp(flow))
+def compute_range_map(flow: torch.Tensor, row0: int = 0,
+                      height: int | None = None) -> torch.Tensor:
+    """How often each pixel is sampled by ``flow`` (B,2,H,W) -> (B,1,H,W).
+    A band of rows from global row ``row0`` of a flow ``height`` rows high
+    splats into the whole (B,1,height,W)."""
+    return get_corresponding_map(flow_to_warp(flow, row0), height)
 
 
-def get_corresponding_map(coords: torch.Tensor) -> torch.Tensor:
+def get_corresponding_map(coords: torch.Tensor, height: int | None = None
+                          ) -> torch.Tensor:
     """The bilinear splat of weight 1 from every pixel to its warp
-    coordinates ``coords`` (B,2,H,W) -> (B,1,H,W)."""
+    coordinates ``coords`` (B,2,H,W) -> (B,1,H,W), or into (B,1,height,W)."""
     b, _, h, w = coords.shape
+    h = h if height is None else height
     x, y = coords[:, 0], coords[:, 1]
     x0, y0 = torch.floor(x), torch.floor(y)
     ox, oy = x - x0, y - y0

@@ -22,20 +22,25 @@ import torch
 import torch.nn.functional as F
 
 
-def flow_to_warp(flow: torch.Tensor) -> torch.Tensor:
-    """Warp coordinates (flow endpoints): the pixel grid plus the flow."""
+def flow_to_warp(flow: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """Warp coordinates (flow endpoints): the pixel grid plus the flow.
+    ``row0``: the global row of the flow's first row (a band of rows)."""
     h, w = flow.shape[-2], flow.shape[-1]
     y, x = torch.meshgrid(
-        torch.arange(h, dtype=flow.dtype, device=flow.device),
+        torch.arange(row0, row0 + h, dtype=flow.dtype, device=flow.device),
         torch.arange(w, dtype=flow.dtype, device=flow.device),
         indexing="ij",
     )
     return flow + torch.stack([x, y], dim=0)
 
 
-def mask_invalid(coords: torch.Tensor) -> torch.Tensor:
-    """1.0 where warp coords land inside the image, else 0.0. ``(B,1,H,W)``."""
+def mask_invalid(coords: torch.Tensor, height: int | None = None
+                 ) -> torch.Tensor:
+    """1.0 where warp coords land inside the image, else 0.0. ``(B,1,H,W)``.
+    ``height``: the image's (default: the coordinates' own; a band's rows
+    test against the whole image's)."""
     h, w = coords.shape[-2], coords.shape[-1]
+    h = h if height is None else height
     x, y = coords[:, 0:1], coords[:, 1:2]
     valid = (x >= 0.0) & (x <= w - 1.0) & (y >= 0.0) & (y <= h - 1.0)
     return valid.to(coords.dtype)

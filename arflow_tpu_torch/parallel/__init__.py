@@ -1,11 +1,12 @@
 """Data parallelism over ``torch.distributed`` (port of
 ``arflow_tpu/parallel``), and the spatial (image-height) sharding of the
-UFlow forward with hand-written row halos (``parallel/spatial.py``; its
-training is ``ROADMAP.md`` queue 1, 'parallel')."""
+UFlow forward and of its training objective with hand-written row halos
+(``parallel/spatial.py``)."""
 
 from arflow_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     all_sum,
+    average_grads,
     batch_group,
     batch_mean,
     batch_rows,
@@ -32,4 +33,6 @@ from arflow_tpu_torch.parallel.spatial import (  # noqa: F401
     shard_images_spatial,
     spatial_forward,
     spatial_image_sharding,
+    spatial_uflow_loss,
+    spatial_value_and_grad,
 )

@@ -15,7 +15,8 @@ the global batch under GSPMD the port computes with explicit reductions:
 - ``all_sum``: a sum over the group with autograd; its backward sums the
   gradient over the group too, so a loss that every rank computes from
   global sums back-propagates ``world`` times its gradient, and the
-  trainer's average of the ranks' gradients is the one-process gradient;
+  average of the ranks' gradients (``average_grads``, one all-reduce) is
+  the one-process gradient;
 - ``data_parallel(group)``: the context in which the losses' batch
   reductions (``batch_sum``, ``batch_mean``, ``group_sums``) and the
   BatchNorm statistics reduce over ``group``; outside it, and without a
@@ -213,16 +214,45 @@ class _AllSum(torch.autograd.Function):
         return g, None
 
 
-def all_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+def all_sum(x: torch.Tensor, group=None, force: bool = False) -> torch.Tensor:
     """``x`` summed over ``group``, with autograd (the backward sums the
-    gradient over the group); ``x`` itself without a group."""
+    gradient over the group) where ``x`` requires grad or ``force`` is set:
+    every rank then issues the backward's all-reduce, also where its ``x``
+    is cut from the graph (an empty band); ``x`` itself without a group."""
     if group is None:
         return x
-    if not x.requires_grad:
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-    return _AllSum.apply(x, group)
+    if force or x.requires_grad:
+        return _AllSum.apply(x if x.requires_grad
+                             else x.detach().requires_grad_(), group)
+    y = x.clone()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def average_grads(params, group=None) -> None:
+    """Each parameter's ``.grad`` averaged over ``group`` in one all-reduce
+    of their concatenation, with a flag per parameter: a rank whose graph
+    never reaches a parameter (an empty band at a coarse level) sends
+    zeros, and a parameter that no rank's graph reaches keeps no gradient,
+    as in one process. Nothing happens without a group."""
+    if group is None:
+        return
+    params = [p for p in params if p.requires_grad]
+    if not params:
+        return
+    flat = torch.cat([(p.grad if p.grad is not None
+                       else torch.zeros_like(p)).reshape(-1) for p in params]
+                     + [torch.tensor([p.grad is not None for p in params],
+                                     dtype=params[0].dtype,
+                                     device=params[0].device)])
+    dist.all_reduce(flat, group=group)
+    n = len(params)
+    flat[:-n] /= dist.get_world_size(group)
+    offset = 0
+    for p, has in zip(params, flat[-n:].tolist()):
+        g = flat[offset:offset + p.numel()].view_as(p)
+        p.grad = g if has > 0 else None
+        offset += p.numel()
 
 
 @contextlib.contextmanager

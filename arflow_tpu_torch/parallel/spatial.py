@@ -1,5 +1,5 @@
-"""Spatial (image-height) sharding of the UFlow forward (port of
-``arflow_tpu/parallel/spatial.py``).
+"""Spatial (image-height) sharding of the UFlow forward and of its training
+objective (port of ``arflow_tpu/parallel/spatial.py``).
 
 The JAX package puts the images on a (data, space) mesh with their height
 split over ``space`` and lets GSPMD partition the whole ``PWCFlow``
@@ -39,9 +39,27 @@ The forward (``spatial_forward``), op by op:
 
 The JAX ``spatial_apply`` turns its Pallas kernel off under the mesh,
 because GSPMD cannot partition an opaque custom call; the port needs no
-such switch, since the kernel runs per band. Training, bfloat16 and int8
-under a spatial mesh are not ported (``ROADMAP.md`` queue 1, 'parallel'):
-``spatial_forward`` refuses them.
+such switch, since the kernel runs per band (its backward too).
+
+Training (``spatial_value_and_grad``: the JAX package's ``value_and_grad``
+of the uflow objective under the mesh) runs the forward with gradients
+and ``spatial_uflow_loss``, ``UFlowLoss`` on the bands. Every all-reduce
+then follows ``parallel/mesh.py:all_sum``: its backward sums the gradient
+over the group, so each rank, which computes the global loss, holds
+``mesh.size`` times its share of every gradient, and the backward of each
+exchange comes at no extra cost: the rows a rank lent return to their
+owner as a sum, the gathered level's gradient is all-reduced and each rank
+keeps its rows (a reduce-scatter), and the moments of
+``normalize_features`` sum back. One all-reduce of the concatenated
+parameter gradients over the mesh, divided by its size, then leaves the
+one-process gradient on every rank. gloo pairs all-reduces by the order
+they are issued in, and autograd runs a backward in the reverse order of
+creation among the nodes it reaches; so in training every exchange joins
+the graph on every rank (``mesh.all_sum(force=True)``), and the finest
+forward flow and the loss depend on every exchange's output through an
+exact zero (``SpaceAxis.tie``), where an empty band would cut it off.
+bfloat16 and int8 under a spatial mesh are not ported (``ROADMAP.md``
+queue 1, 'parallel'): ``spatial_forward`` refuses them.
 """
 
 from __future__ import annotations
@@ -52,13 +70,14 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from arflow_tpu_torch.ops.cost_volume import compute_cost_volume
-from arflow_tpu_torch.ops.resize import resize_bilinear
-from arflow_tpu_torch.ops.warp import resample
-from arflow_tpu_torch.parallel.mesh import Mesh, local_device
+from arflow_tpu_torch.ops.resize import _resize_matrix, resize_bilinear
+from arflow_tpu_torch.ops.warp import flow_to_warp, mask_invalid, resample
+from arflow_tpu_torch.parallel.mesh import (Mesh, all_sum, average_grads,
+                                            local_device)
 
 SPATIAL_NOT_PORTED = (
-    "the spatial forward runs PWCFlow in float32 for inference: training "
-    "(train=True), bfloat16 and int8 under a spatial mesh are not ported; "
+    "the spatial forward and its training run PWCFlow in float32 or "
+    "float64: bfloat16 and int8 under a spatial mesh are not ported; "
     "ROADMAP.md queue 1, 'parallel'")
 
 
@@ -204,21 +223,39 @@ def _rows_of(edges, rows, h, n, k):
 class SpaceAxis:
     """The space axis of a mesh at work: this rank's ``rank`` of ``size``,
     the ``group`` its collectives run over (None for one rank), and the
-    ops of the forward on row bands."""
+    ops of the forward on row bands. With ``train`` its sums join the
+    graph on every rank and are kept for ``tie``."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, train: bool = False):
         n_space = mesh.shape[1]
         self.size = n_space
         self.rank = mesh_coords(mesh)[1] if mesh.group is not None else 0
         self.group = mesh.groups.get("space") if n_space > 1 else None
+        self.train = train
+        self.exchanged = []
 
     def own(self, h: int) -> tuple:
         return row_range(h, self.size, self.rank)
 
-    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
-        if self.group is not None:
+    def all_sum(self, t: torch.Tensor, grad: bool = True) -> torch.Tensor:
+        """``t`` summed over the group: in training and where ``grad``,
+        through ``mesh.all_sum(force=True)``, else in place."""
+        if self.group is None:
+            return t
+        if not (self.train and grad):
             dist.all_reduce(t, group=self.group)
-        return t
+            return t
+        out = all_sum(t, self.group, force=True)
+        self.exchanged.append(out)
+        return out
+
+    def tie(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` plus an exact zero that depends on every differentiable
+        sum since the last tie, so that the backward reaches each of them
+        on every rank, whatever the band's ops used."""
+        zero = sum(e.reshape(-1)[:0].sum() for e in self.exchanged)
+        self.exchanged = []
+        return t + zero
 
     def take(self, x: torch.Tensor, h: int, request) -> torch.Tensor:
         """This rank's global rows ``[lo, hi) = request(self.rank)`` of a
@@ -234,12 +271,20 @@ class SpaceAxis:
         return halo_take(x, edges, h, self.size, self.rank, k,
                          *request(self.rank))
 
-    def gather(self, x: torch.Tensor, h: int) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, h: int, grad: bool = True
+               ) -> torch.Tensor:
         """The whole level (B,C,h,W) on every rank of the group."""
         lo, hi = self.own(h)
         out = x.new_zeros(x.shape[:2] + (h, x.shape[3]))
         out[:, :, lo:hi] = x
-        return self.all_sum(out)
+        return self.all_sum(out, grad)
+
+    def heights(self, *bands) -> list:
+        """The whole heights of NCHW ``bands`` (each this rank's rows of a
+        level), from one sum of the row counts without gradient."""
+        rows = torch.tensor([b.shape[2] for b in bands], dtype=torch.int64,
+                            device=bands[0].device)
+        return self.all_sum(rows, grad=False).tolist()
 
     # -- ops on row bands --
 
@@ -337,7 +382,7 @@ def conv_rows(conv, x: torch.Tensor) -> torch.Tensor:
                     (0, conv.padding[1]), conv.dilation, conv.groups)
 
 
-def _refuse(model, train: bool) -> None:
+def _refuse(model) -> None:
     from arflow_tpu_torch.models.layers import int8_pyramid_enabled
     from arflow_tpu_torch.models.uflow import PWCFlow
 
@@ -347,7 +392,7 @@ def _refuse(model, train: bool) -> None:
             f"{type(model).__name__}; ROADMAP.md queue 1, 'parallel'")
     convs = [c for level in model._feature_pyramid_extractor._convs
              for c in level]
-    if (train or model.compute_dtype is not None
+    if (model.compute_dtype is not None
             or any(c.int8 is not None and int8_pyramid_enabled(c.int8)
                    for c in convs)):
         raise NotImplementedError(SPATIAL_NOT_PORTED)
@@ -366,10 +411,16 @@ def _pyramid(model, ax: SpaceAxis, img: torch.Tensor, h: int):
     return features, heights
 
 
-def _flows(model, ax: SpaceAxis, fp1, fp2, heights) -> list:
-    """``PWCFlow.forward_2_frames`` on the bands (eval mode): NCHW flows,
-    finest first, this rank's rows of each."""
-    from arflow_tpu_torch.models.uflow import MAX_DISPLACEMENT, NUM_LEVELS
+def _flows(model, ax: SpaceAxis, fp1, fp2, heights, generator=None) -> list:
+    """``PWCFlow.forward_2_frames`` on the bands: NCHW flows, finest first,
+    this rank's rows of each. With ``generator``, level dropout draws from
+    it, one draw per level and one for the refinement, as the one-process
+    model does (every rank of the mesh draws alike)."""
+    from arflow_tpu_torch.models.uflow import (
+        MAX_DISPLACEMENT,
+        NUM_LEVELS,
+        level_dropout,
+    )
 
     flow = flow_up = context = context_up = up_h = None
     flows = []
@@ -380,6 +431,8 @@ def _flows(model, ax: SpaceAxis, fp1, fp2, heights) -> list:
                              f"{up_h}")
         context, flow = _estimate(model, ax, level, h, fp1[level], fp2[level],
                                   flow_up, context_up, MAX_DISPLACEMENT)
+        context, flow = level_dropout([context, flow], model.level_dropout,
+                                      generator)
         if flow_up is not None:
             flow = flow + flow_up
         flow_up, up_h = ax.upsample(flow, h, is_flow=True)
@@ -391,6 +444,7 @@ def _flows(model, ax: SpaceAxis, fp1, fp2, heights) -> list:
     for layer in model._refine_model:
         x = ax.conv(layer, x, h)[0] if isinstance(layer, torch.nn.Conv2d) \
             else layer(x)
+    (x,) = level_dropout([x], model.level_dropout, generator)
     flows[0] = flow + x
     for _ in range(2):
         up, h = ax.upsample(flows[0], h, is_flow=True)
@@ -412,12 +466,7 @@ def _estimate(model, ax, level, h, features1, features2, flow_up, context_up,
         if lo == hi:
             warped2 = features2
         else:
-            w = flow_up.shape[-1]
-            ys, xs = torch.meshgrid(
-                torch.arange(lo, hi, dtype=flow_up.dtype, device=flow_up.device),
-                torch.arange(w, dtype=flow_up.dtype, device=flow_up.device),
-                indexing="ij")
-            warped2 = resample(whole, flow_up + torch.stack([xs, ys], dim=0))
+            warped2 = resample(whole, flow_to_warp(flow_up, lo))
 
     f1n, w2n = features1, warped2
     if model.feature_norm:
@@ -444,23 +493,37 @@ def _estimate(model, ax, level, h, features1, features2, flow_up, context_up,
 
 
 def spatial_forward(model, mesh: Mesh, img1: torch.Tensor, img2: torch.Tensor,
-                    with_bk: bool = True, train: bool = False) -> dict:
+                    with_bk: bool = True, train: bool = False,
+                    generator: torch.Generator | None = None) -> dict:
     """``PWCFlow.forward`` on this rank's part of the images
     (``shard_images_spatial``: NHWC, its batch part and rows):
     ``{'flows_fw'[, 'flows_bw']}``, each 6 NHWC flows, finest first, this
     rank's rows of each (``gather_flows`` assembles them). Every rank of
-    the mesh calls it with its part. Inference only: ``train=True``,
-    bfloat16 and int8 raise."""
-    _refuse(model, train)
-    ax = SpaceAxis(mesh)
-    rows = torch.tensor([img1.shape[1]], dtype=torch.int64, device=img1.device)
-    height = int(ax.all_sum(rows).item())
-    with torch.no_grad():
-        fp1, heights = _pyramid(model, ax, img1.permute(0, 3, 1, 2), height)
-        fp2, _ = _pyramid(model, ax, img2.permute(0, 3, 1, 2), height)
-        res = {"flows_fw": _flows(model, ax, fp1, fp2, heights)}
+    the mesh calls it with its part.
+
+    ``train=True`` keeps the graph for a backward (see the module's
+    docstring) and turns level dropout on; it draws from ``generator``,
+    which every rank seeds and advances alike, and which it then needs
+    unless ``level_dropout`` is 0. bfloat16 and int8 raise."""
+    _refuse(model)
+    if train and model.level_dropout > 0:
+        if generator is None:
+            raise ValueError("spatial_forward(train=True) with level_dropout "
+                             "> 0 needs a torch.Generator that every rank "
+                             "seeds and advances alike")
+    else:
+        generator = None
+    ax = SpaceAxis(mesh, train)
+    x1, x2 = img1.permute(0, 3, 1, 2), img2.permute(0, 3, 1, 2)
+    (height,) = ax.heights(x1)
+    with torch.set_grad_enabled(train):
+        fp1, heights = _pyramid(model, ax, x1, height)
+        fp2, _ = _pyramid(model, ax, x2, height)
+        res = {"flows_fw": _flows(model, ax, fp1, fp2, heights, generator)}
         if with_bk:
-            res["flows_bw"] = _flows(model, ax, fp2, fp1, heights)
+            res["flows_bw"] = _flows(model, ax, fp2, fp1, heights, generator)
+        if train:
+            res["flows_fw"][0] = ax.tie(res["flows_fw"][0])
     return {k: [f.permute(0, 2, 3, 1).contiguous() for f in v]
             for k, v in res.items()}
 
@@ -474,9 +537,7 @@ def gather_flows(mesh: Mesh, res: dict) -> dict:
     ax = SpaceAxis(mesh)
     keys = sorted(res)
     flows = [f for k in keys for f in res[k]]
-    counts = torch.tensor([f.shape[1] for f in flows], dtype=torch.int64,
-                          device=flows[0].device)
-    heights = ax.all_sum(counts).tolist()
+    heights = ax.heights(*(f.permute(0, 3, 1, 2) for f in flows))
     d = mesh_coords(mesh)[0] if mesh.group is not None else 0
     out = []
     for f, h in zip(flows, heights):
@@ -489,3 +550,230 @@ def gather_flows(mesh: Mesh, res: dict) -> dict:
         out.append(whole)
     n = len(flows) // len(keys)
     return {k: out[i * n:(i + 1) * n] for i, k in enumerate(keys)}
+
+
+# -- training: UFlowLoss on the bands, the value and the gradients -------------
+
+CENSUS_PATCH = 7  # ops/census.py's default, which UFlowLoss takes
+
+
+def resize_rows(whole: torch.Tensor, out_hw, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of ``resize_bilinear(whole, out_hw)`` for a
+    resize by a whole factor along the height, from the input rows that
+    ``_resize_matrix`` gives those rows taps in: upsampling by ``f``, the
+    taps' rows ``[a, b)`` resized by ``f`` are global rows ``[f a, f b)``
+    (clamped at the image's edges as the whole's are); downsampling by
+    ``f``, the aligned rows ``[f lo, f hi)``, which hold the taps. Equal
+    to the whole's rows bit for bit."""
+    h, oh = whole.shape[2], int(out_hw[0])
+    if lo >= hi:
+        return whole.new_zeros(whole.shape[:2] + (0, int(out_hw[1])))
+    taps = np.nonzero(_resize_matrix(h, oh)[lo:hi].any(axis=0))[0]
+    a, b = int(taps[0]), int(taps[-1]) + 1
+    if oh >= h and oh % h == 0:
+        f = oh // h
+        first, window, size = f * a, whole[:, :, a:b], f * (b - a)
+    elif oh < h and h % oh == 0:
+        f = h // oh
+        first, window, size = lo, whole[:, :, f * lo:f * hi], hi - lo
+        a, b = f * lo, f * hi
+    else:
+        raise ValueError(f"a resize of {h} rows to {oh} is not by a whole "
+                         "factor")
+    if not (first <= lo and hi <= first + size and a <= taps[0]
+            and taps[-1] < b):
+        raise ValueError(f"rows [{lo}, {hi}) of {oh} read rows outside "
+                         f"[{a}, {b}) of {h}")
+    out = resize_bilinear(window, (size, int(out_hw[1])))
+    return out[:, :, lo - first:hi - first]
+
+
+def _occlusion_rows(ax: SpaceAxis, flow_2: torch.Tensor, h2: int, h: int
+                    ) -> torch.Tensor:
+    """``UFlowLoss._occlusion`` of this rank's rows of the level-2 flow:
+    its range map splatted into the whole level in global rows, summed over
+    the group without gradient (``occlusion.py``'s guards hold: no NaN
+    index), clipped, and the band's rows of its 4x upsample."""
+    from arflow_tpu_torch.ops import compute_range_map
+
+    if h != int(h2 * 4.0):
+        raise ValueError(f"the level-2 flow has {h2} rows, the image {h}")
+    counts = compute_range_map(flow_2.detach(), ax.own(h2)[0], h2)
+    occu = ax.all_sum(counts, grad=False).clamp(0.0, 1.0)
+    return resize_rows(occu, (h, int(occu.shape[3] * 4.0)), *ax.own(h))
+
+
+def _census_rows(ax: SpaceAxis, targets: torch.Tensor, recons: torch.Tensor,
+                 mask: torch.Tensor, h: int, mesh_sum, num_groups: int
+                 ) -> torch.Tensor:
+    """``census_loss(..., num_groups)`` of this rank's rows: the 7x7
+    patches read ``CENSUS_PATCH // 2`` halo rows of the whole targets and
+    of the reconstructions (zeros outside the image), the border that
+    ``zero_mask_border`` zeroes is the image's, and the sums run over the
+    mesh."""
+    from arflow_tpu_torch.ops.census import (
+        abs_robust_loss,
+        census_transform,
+        soft_hamming,
+    )
+
+    pad = CENSUS_PATCH // 2
+    lo, hi = ax.own(h)
+    w = targets.shape[3]
+
+    def ring(q):
+        a, b = row_range(h, ax.size, q)
+        return a - pad, b + pad
+
+    a, b = lo - pad, hi + pad
+    t_ext = F.pad(targets[:, :, max(a, 0):min(b, h)],
+                  (0, 0, max(-a, 0), max(b - h, 0)))
+    r_ext = ax.take(recons, h, ring)
+    hamming = soft_hamming(
+        census_transform(t_ext, CENSUS_PATCH)[:, :, pad:pad + hi - lo],
+        census_transform(r_ext, CENSUS_PATCH)[:, :, pad:pad + hi - lo])
+    rows = torch.arange(lo, hi, device=mask.device)
+    cols = torch.arange(w, device=mask.device)
+    border = (((rows >= pad) & (rows < h - pad)).view(-1, 1)
+              & ((cols >= pad) & (cols < w - pad)).view(1, -1))
+    padded_mask = mask * border.to(mask.dtype)
+    diff = abs_robust_loss(hamming) * padded_mask
+    dims = (1, 2, 3, 4)
+    return (mesh_sum(diff.unflatten(0, (num_groups, -1)).sum(dim=dims), True)
+            / (mesh_sum(padded_mask.detach().unflatten(0, (num_groups, -1))
+                        .sum(dim=dims)) + 1e-6))
+
+
+def _smooth_rows(ax: SpaceAxis, cfg, images: torch.Tensor, flow_2: torch.Tensor,
+                 h2: int, mesh_mean) -> torch.Tensor:
+    """``UFlowLoss._smooth_one_direction`` of this rank's rows of the
+    level-2 flow: ``downsample(images, 4)`` from the whole images' rows
+    its taps read (``resize_rows``), the forward differences along H with
+    the rows below the band (none past the image's last row, the flow's
+    through an exchange), and each mean over the mesh divided by the
+    whole's count."""
+    from arflow_tpu_torch.ops.census import robust_l1
+
+    if cfg.smooth_order not in (1, 2):
+        raise NotImplementedError(f"smooth_order {cfg.smooth_order}")
+    # the image differences' stride, and the rows below the band that the
+    # flow's differences (second ones for order 2) read
+    stride = cfg.smooth_order
+    lo, hi = ax.own(h2)
+    rows = hi - lo
+    im = resize_rows(images.detach(), (h2, int(images.shape[3] / 4.0)), lo,
+                     min(hi + stride, h2))
+    im_gx = im[:, :, :rows, stride:] - im[:, :, :rows, :-stride]
+    im_gy = im[:, :, stride:] - im[:, :, :-stride]
+    ec = cfg.edge_constant
+    weights_x = torch.exp(-(ec * im_gx).abs().mean(dim=1, keepdim=True))
+    weights_y = torch.exp(-(ec * im_gy).abs().mean(dim=1, keepdim=True))
+
+    def below(q):
+        a, b = row_range(h2, ax.size, q)
+        return a, min(b + stride, h2)
+
+    fl = ax.take(flow_2, h2, below)
+    flow_gx = fl[:, :, :rows, 1:] - fl[:, :, :rows, :-1]
+    flow_gy = fl[:, :, 1:] - fl[:, :, :-1]
+    if cfg.smooth_order == 1:
+        tx, ty = flow_gx, flow_gy
+    else:
+        tx = flow_gx[:, :, :, 1:] - flow_gx[:, :, :, :-1]
+        ty = flow_gy[:, :, 1:] - flow_gy[:, :, :-1]
+    return cfg.w_smooth * (
+        mesh_mean(weights_x * robust_l1(tx.square()), h2)
+        + mesh_mean(weights_y * robust_l1(ty.square()), h2 - stride)) / 2.0
+
+
+def spatial_uflow_loss(loss, mesh: Mesh, res: dict, img1: torch.Tensor,
+                       img2: torch.Tensor) -> dict:
+    """``UFlowLoss`` (``loss``, its ``cfg``) of the global flows and
+    images from this rank's rows of them: ``res`` as ``spatial_forward``
+    returns it, the images as ``shard_images_spatial`` hands them out.
+    Every rank of the mesh calls it and gets the whole loss's ``total``,
+    ``l_ph``, ``l_sm`` and ``flow_mean``, and its own rows of ``mask1``
+    (NHWC), as GSPMD partitions the loss under the JAX mesh.
+
+    Warp coordinates carry the band's global rows and test against the
+    whole image; the reconstructions sample the whole images, gathered once
+    without gradient; the occlusion splats into the whole level-2 map, which
+    the group sums; census and smoothness read their halo rows through the
+    exchange; every sum runs over the mesh and every mean divides by the
+    whole's count, which the row ranges give."""
+    cfg = loss.cfg
+    ax = SpaceAxis(mesh, train=True)
+    n_data = mesh.shape[0]
+
+    def mesh_sum(t, force=False):
+        return all_sum(t, mesh.group, force)
+
+    def mesh_mean(t, rows):  # t: NCHW, this rank's rows of ``rows``
+        count = t.shape[0] * n_data * t.shape[1] * rows * t.shape[3]
+        return mesh_sum(t.sum(), True) / count
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2).contiguous()
+
+    flows_fw, flows_bw = res["flows_fw"], res["flows_bw"]
+    flow12_0 = nchw(flows_fw[0][..., 0:2])
+    flow12_2 = nchw(flows_fw[2][..., 0:2])
+    flow21_2 = nchw(flows_bw[2][..., 0:2])
+    img1, img2 = nchw(img1), nchw(img2)
+    h, h2 = ax.heights(img1, flow12_2)
+    lo = ax.own(h)[0]
+    whole = ax.gather(torch.cat([img1, img2], dim=1).detach(), h, grad=False)
+    whole1, whole2 = whole[:, :3], whole[:, 3:]
+
+    if cfg.with_bk:
+        flow21_0 = nchw(flows_bw[0][..., 0:2])
+        targets = torch.cat([whole1, whole2], dim=0)
+        warp12_0 = flow_to_warp(flow12_0, lo)
+        warp21_0 = flow_to_warp(flow21_0, lo)
+        recons = torch.cat([resample(whole2, warp12_0),
+                            resample(whole1, warp21_0)], dim=0)
+        valid = mask_invalid(torch.cat([warp12_0, warp21_0], dim=0), h)
+        occu = _occlusion_rows(ax, torch.cat([flow21_2, flow12_2], dim=0), h2, h)
+        mask = (occu * valid).detach()
+        loss_warp = cfg.w_census * _census_rows(
+            ax, targets, recons, mask, h, mesh_sum, 2).sum()
+        loss_smooth = 2.0 * _smooth_rows(
+            ax, cfg, targets, torch.cat([flow12_2, flow21_2], dim=0), h2,
+            mesh_mean)
+        mask1 = mask[:img1.shape[0]]
+    else:
+        warp12_0 = flow_to_warp(flow12_0, lo)
+        im1_recons = resample(whole2, warp12_0)
+        mask1 = (_occlusion_rows(ax, flow21_2, h2, h)
+                 * mask_invalid(warp12_0, h)).detach()
+        loss_warp = cfg.w_census * _census_rows(
+            ax, whole1, im1_recons, mask1, h, mesh_sum, 1).sum()
+        loss_smooth = _smooth_rows(ax, cfg, whole1, flow12_2, h2, mesh_mean)
+
+    flows = torch.cat([flows_fw[0], flows_bw[0]], dim=-1).abs()
+    flow_mean = mesh_sum(flows.sum().detach()) / (
+        flows.shape[0] * n_data * h * flows.shape[2] * flows.shape[3])
+    total = ax.tie(loss_warp + loss_smooth)
+    return {"total": total, "l_ph": loss_warp, "l_sm": loss_smooth,
+            "flow_mean": flow_mean, "mask1": mask1.permute(0, 2, 3, 1).contiguous()}
+
+
+def spatial_value_and_grad(model, loss, mesh: Mesh, img1: torch.Tensor,
+                           img2: torch.Tensor,
+                           generator: torch.Generator | None = None) -> dict:
+    """The uflow objective on the mesh, the counterpart of the JAX
+    package's ``value_and_grad`` under ``spatial_apply``: ``spatial_forward``
+    in training mode (level dropout from ``generator``, which every rank
+    seeds and advances alike), ``spatial_uflow_loss`` (``loss``: a
+    ``UFlowLoss``), its backward and ``average_grads``. Every rank of the
+    mesh calls it with its part of the images; it returns the loss's
+    values (detached, ``mask1`` this rank's rows) and replaces every
+    parameter's ``.grad`` with the one-process gradient."""
+    for p in model.parameters():
+        p.grad = None
+    res = spatial_forward(model, mesh, img1, img2, train=True,
+                          generator=generator)
+    out = spatial_uflow_loss(loss, mesh, res, img1, img2)
+    out["total"].backward()
+    average_grads(model.parameters(), mesh.group)
+    return {k: v.detach() for k, v in out.items()}

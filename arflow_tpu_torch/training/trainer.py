@@ -62,7 +62,8 @@ import torch.distributed as dist
 
 from arflow_tpu_torch.models import load_pretrained
 from arflow_tpu_torch.models.layers import rematerialized
-from arflow_tpu_torch.parallel.mesh import data_parallel, replicate
+from arflow_tpu_torch.parallel.mesh import (average_grads, data_parallel,
+                                            replicate)
 from arflow_tpu_torch.training.checkpoint import (
     load_checkpoint,
     restore_jax_state,
@@ -209,21 +210,9 @@ class BaseTrainer:
         return not bool(bad)
 
     def _average_grads(self):
-        """The ranks' gradients averaged in one all-reduce of their
-        concatenation (the parameters without one have none on any rank:
-        every rank runs the same graph)."""
-        if self.group is None:
-            return
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        if not grads:
-            return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=self.group)
-        flat /= self.world
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        """The ranks' gradients averaged in one all-reduce
+        (``parallel.mesh.average_grads``)."""
+        average_grads(self.model.parameters(), self.group)
 
     def _run_one_epoch(self):
         raise NotImplementedError

@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --overfit-spread [variant ...]
     python3 chip_smoke.py --forward-batches
+    python3 chip_smoke.py --spatial-train-cudnn
 
 Builds every kernel of the port from ``arflow_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
@@ -25,7 +26,7 @@ validation, a resume and an overfit check; the ELBO's Taylor warp
 each against the plain cost volume and float64, steps through
 ``UFlowElboTrainer``, the step time beside the exact warp's in turns and
 setup (b)'s warp device time in each mode, a bf16 step, and ``tools/taylor_compare.py``'s
-two 300-step runs); training of the mixture
+two 100-step runs); training of the mixture
 weights net (chairs_uflow_elbo_mixture.json) and supervised MSE training
 (chairs_uflow_mse.json at 384x512 b16): one step each against the plain
 cost volume and float64, steps through their trainers, ``train_main`` with
@@ -75,14 +76,18 @@ resume, an overfit check, and 6 steps in bf16); the training tools (phase
 tools_kernels: both kernels at the tools' level shapes; phase tools:
 ``synth_dataset``'s CLI at 384x512 read back by ``Chairs`` and trained
 on by ``train_main`` with chairs_uflow_mse.json, ``sanity_train``'s
-and ``bf16_compare``'s 300-step runs, ``real_frame_train`` and its
-``--elbo`` mode at 384x640 on the tests' generated frames); the
+300-step and ``bf16_compare``'s 100-step runs, ``real_frame_train`` (300
+steps) and its ``--elbo`` mode (100) at 384x640 on the tests' generated frames); the
 natural-gradient machinery (phase natural_grad: both identities'
 backward, ``natural_gradient``, the penalties' derivatives and
 ``inverse_l1norm`` in float32 against float64 on the CPU); the spatial
 (image-height) forward of ``parallel/spatial.py`` (phase spatial: 2, 4
 and 8 gloo ranks on the card at 384x640, the kernel at every rank's band,
-the gathered flows against the one-process forward and float64); and the
+the gathered flows against the one-process forward and float64) and its
+training objective (phase spatial_train, on the same ranks: meshes
+(1, 2), (1, 4) and (2, 2) at 384x640, ``spatial_value_and_grad``'s loss
+and averaged gradients against the one-process step and float64, the
+backward kernel at every rank's band, three Adam steps); and the
 training input path (phase input_path, at 384x512: the native host library against the numpy hue and decode, the
 host's ms per sample by stage with the hue in numpy and native, the
 photometric augmentation on the card against the CPU's with its launches,
@@ -98,6 +103,10 @@ rest of the repository beside it, it exits non-zero and prints no result.
 
 With ``--forward-batches`` it runs only ``forward_batches``: the 384x640
 float32 forward timed at batch 1, 2, 4 and 8, and profiled at batch 2.
+With ``--spatial-train-cudnn`` it runs only ``spatial_train_cudnn``: phase
+spatial_train's S = 4 step with cuDNN deterministic, at its default and
+off, its peak memory and its float32 and float64 gradients' errors beside
+the one-process step's.
 With ``--overfit-spread`` it runs only ``overfit_spread``: the
 ``pwclite_cli`` phase's overfit, repeated under several choices of the
 card's algorithms, at the config's learning rate and at the check's.
@@ -2411,7 +2420,8 @@ def step_time(phase, one_step, batch, shape, smi, labels=None, ranges=None,
 # samples: (b) and (d) draw 4, (e) 6; (a) draws one, where the gate is off.
 TAYLOR_SETUPS = ("b", "d", "e")
 TAYLOR_PROFILED = "b"
-TAYLOR_COMPARE_STEPS = 300
+# Its check is a finite EPE; 100 steps keep the phase short.
+TAYLOR_COMPARE_STEPS = 100
 
 
 def taylor_config(name, overrides, on):
@@ -5036,6 +5046,9 @@ SYNTH_PAIRS = 64
 SYNTH_SIZE = (384, 512)  # FlyingChairs' frame size, chairs_uflow_mse.json's test_shape
 SYNTH_VALID = 6  # the fixed validation split's fids among 1 .. 64
 TOOL_STEPS = 300
+# The runs whose check is finite values only: bf16_compare and
+# real_frame_train --elbo.
+TOOL_SHORT_STEPS = 100
 REAL_FRAME_SIZE = (384, 640)
 
 
@@ -5115,11 +5128,11 @@ def phase_tools(dev, smi):
       a finite EPE, 4 + 4 launches per step and 4 per validation pair;
     - ``sanity_train``: TOOL_STEPS steps, ending under EPE 1.0 (its own
       check), 4 + 4 launches per step;
-    - ``bf16_compare``: 2 x TOOL_STEPS steps and 4 + 4 held-out forwards;
+    - ``bf16_compare``: 2 x TOOL_SHORT_STEPS steps and 4 + 4 held-out forwards;
       its JSON line, failing only on a non-finite value;
     - ``real_frame_train`` on the tests' generated frames at 384x640:
       TOOL_STEPS steps, its census loss below the untrained one, the three
-      warp PSNRs; then ``--elbo`` for TOOL_STEPS steps: a finite loss and
+      warp PSNRs; then ``--elbo`` for TOOL_SHORT_STEPS steps: a finite loss and
       the entropy ``.npy`` written. 8 + 8 (``--elbo``: 4 + 4) launches per
       step and 8 (4) per evaluation, of which there are 2.
 
@@ -5179,7 +5192,7 @@ def phase_tools(dev, smi):
             failures.append(f"sanity_train launched {launches['sanity_train']}")
 
         report, _, launches["bf16_compare"], seconds = counted(
-            bf16_compare.main, TOOL_STEPS, dev)
+            bf16_compare.main, TOOL_SHORT_STEPS, dev)
         emit({"phase": "tools_bf16_compare", **report,
               "launches": launches["bf16_compare"], "seconds": seconds, "card": smi})
         values = [report[k] for k in ("final_epe_f32", "final_epe_bf16")]
@@ -5189,14 +5202,16 @@ def phase_tools(dev, smi):
                    for v in d.values()]
         if not np.isfinite(values).all():
             failures.append("bf16_compare: a non-finite value")
-        want = {"cost_volume": 8 * TOOL_STEPS + 16, "cost_volume_bwd": 8 * TOOL_STEPS}
+        want = {"cost_volume": 8 * TOOL_SHORT_STEPS + 16,
+                "cost_volume_bwd": 8 * TOOL_SHORT_STEPS}
         if launches["bf16_compare"] != want:
             failures.append(f"bf16_compare launched {launches['bf16_compare']}")
 
         frames = photo_frames(os.path.join(tmp, "frames"))
-        for mode, per in (("uflow", 8), ("elbo", 4)):
+        for mode, per, steps in (("uflow", 8, TOOL_STEPS),
+                                 ("elbo", 4, TOOL_SHORT_STEPS)):
             out_dir = os.path.join(tmp, f"real_frame_{mode}")
-            argv = ["--frames", frames, "--steps", str(TOOL_STEPS), "--size",
+            argv = ["--frames", frames, "--steps", str(steps), "--size",
                     "x".join(map(str, REAL_FRAME_SIZE)), "--out", out_dir,
                     "--device", str(dev)] + (["--elbo"] if mode == "elbo" else [])
             report, _, launches[f"real_frame_{mode}"], seconds = counted(
@@ -5205,8 +5220,8 @@ def phase_tools(dev, smi):
             emit({"phase": f"tools_real_frame_{mode}", **report, "files": files,
                   "launches": launches[f"real_frame_{mode}"], "seconds": seconds,
                   "card": smi})
-            want = {"cost_volume": per * (TOOL_STEPS + 2),
-                    "cost_volume_bwd": per * TOOL_STEPS}
+            want = {"cost_volume": per * (steps + 2),
+                    "cost_volume_bwd": per * steps}
             if launches[f"real_frame_{mode}"] != want:
                 failures.append(f"real_frame {mode} launched "
                                 f"{launches[f'real_frame_{mode}']}, not {want}")
@@ -5599,8 +5614,12 @@ def run_ranks(argvs, timeout, cwd=REPO) -> list:
     out. Returns their output."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    procs = [subprocess.Popen(a, cwd=cwd, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for a in argvs]
+    # Each rank writes to a file of its own: a pipe read only at the end
+    # would stall a rank whose output outgrows the pipe's buffer.
+    logs = [tempfile.TemporaryFile("w+") for _ in argvs]
+    procs = [subprocess.Popen(a, cwd=cwd, env=env, stdout=log,
+                              stderr=subprocess.STDOUT, text=True)
+             for a, log in zip(argvs, logs)]
     deadline = time.time() + timeout
     try:
         while any(p.poll() is None for p in procs):
@@ -5612,12 +5631,31 @@ def run_ranks(argvs, timeout, cwd=REPO) -> list:
             if p.poll() is None:
                 p.kill()
             p.wait()
-    outs = [p.stdout.read() for p in procs]
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
     bad = [i for i, p in enumerate(procs) if p.returncode != 0]
     if bad:
         raise RuntimeError(f"rank {bad[0]} failed ({procs[bad[0]].returncode}):\n"
                            + outs[bad[0]][-3000:])
     return outs
+
+
+def fail_fast(fn, *args) -> None:
+    """Run a rank's ``fn(*args)``; on an exception print its traceback and
+    leave at once with code 1, so that ``run_ranks`` sees the failure
+    rather than a rank whose exit waits on its process group."""
+    import traceback
+
+    try:
+        fn(*args)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
 
 
 def free_port() -> int:
@@ -5994,6 +6032,21 @@ def overfit_spread(dev, variants) -> None:
 
 SPATIAL_RANKS = 8  # gloo ranks on the one card; a cell's mesh takes its first S
 SPATIAL_CELLS = ((2, 1), (2, 2), (4, 1), (4, 2), (8, 1))  # (S, batch) at HxW
+# The training cells, run by the same ranks after the forward cells: name ->
+# (data groups, space ranks, global batch) at HxW; a mesh takes the first
+# data x space ranks.
+SPATIAL_TRAIN_CELLS = {"S2_b1": (1, 2, 1), "S4_b1": (1, 4, 1),
+                       "2x2_b2": (2, 2, 2)}
+SPATIAL_ADAM_STEPS = 3
+# Seconds that phase spatial's ranks may take, forward and training cells
+# together (about 100 on the H100 at 700 W).
+SPATIAL_DEADLINE = 240
+SPATIAL_LOSS_RTOL = 1e-4
+# Each parameter's gradient of the float64 step on the bands (plain cost
+# volume) against the one-process float64 step, relative L2: the bands'
+# arithmetic apart from float32's rounding (the CPU tests hold it to JAX
+# within 1e-10 of the largest entry).
+SPATIAL_F64_RTOL = 1e-9
 
 
 def spatial_images(dev):
@@ -6015,7 +6068,7 @@ def spatial_bands(s, b):
 
 def spatial_worker(rank, world, port, out, device="cuda:0") -> None:
     """One rank of phase spatial (``python -c "import chip_smoke as c;
-    c.spatial_worker(...)"``): joins a gloo group of ``world`` ranks on
+    c.fail_fast(c.spatial_worker, ...)"``): joins a gloo group of ``world`` ranks on
     ``device``, makes the spatial mesh of each cell's first S ranks, and for
     each cell it belongs to runs ``spatial_forward`` (both directions) on
     its part of the pair: once to warm up (the first call of a process
@@ -6086,9 +6139,180 @@ def spatial_worker(rank, world, port, out, device="cuda:0") -> None:
             "flows": ({k: [f.cpu() for f in v] for k, v in flows.items()}
                       if mesh.rank == 0 else None)}
         seconds[f"S{s}_b{b}"] = time.perf_counter() - t_cell
-    torch.save({"rank": rank, "cells": cells, "seconds": seconds}, out)
+        print(f"rank {rank}: S{s}_b{b} {seconds[f'S{s}_b{b}']:.1f} s",
+              file=sys.stderr, flush=True)
+    train = {}
+    for name, (d, s, b) in SPATIAL_TRAIN_CELLS.items():
+        mesh = (meshes[s] if d == 1 else
+                make_spatial_mesh(s, device=dev, ranks=range(d * s)))
+        if mesh is None:
+            continue
+        t_cell = time.perf_counter()
+        train[name] = spatial_train_cell(model, mesh, img1[:b], img2[:b],
+                                         calls, counted)
+        seconds[f"train_{name}"] = time.perf_counter() - t_cell
+        print(f"rank {rank}: train_{name} {seconds[f'train_{name}']:.1f} s "
+              f"{train[name]['stage_seconds']}", file=sys.stderr, flush=True)
+    torch.save({"rank": rank, "cells": cells, "train": train,
+                "seconds": seconds}, out)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+def spatial_loss_config():
+    """``CONFIG``'s loss with ``smooth_order: 1``, as phase train sets it."""
+    loss_cfg = load_config(CONFIG).loss.copy()
+    loss_cfg.smooth_order = 1
+    return loss_cfg
+
+
+def spatial_train_cell(model0, mesh, img1, img2, calls, counted) -> dict:
+    """One training cell of phase spatial_train on this rank:
+    ``spatial_value_and_grad`` of a copy of ``model0`` and ``UFlowLoss`` on
+    its part of the pair, level dropout from a generator every rank seeds
+    with ``SEED``. A warm-up step, then the checked step from the same
+    seed, timed, with the launches counted from 0 and each all-reduce
+    labelled forward, loss, backward or gradients (cuDNN deterministic, as
+    the step checks run); the same step with the plain cost volume; then
+    ``SPATIAL_ADAM_STEPS`` Adam steps (``training/optim.py``) from the
+    checked step's gradient on. Before them, the step in float64 with the
+    plain cost volume (a float64 copy of ``model0``). Returns the checked
+    step's values, wall ms, peak memory, launches and all-reduces, a digest
+    of its gradients (and, on the mesh's rank 0, its gradients, the plain
+    step's and the float64 step's), and each Adam step's loss and parameter
+    digest."""
+    import hashlib
+
+    from arflow_tpu_torch.parallel import shard_images_spatial
+    from arflow_tpu_torch.parallel import spatial as spatial_module
+    from arflow_tpu_torch.training import create_optimizer
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    model = copy.deepcopy(model0)
+    loss = get_loss(spatial_loss_config())
+    opt = create_optimizer(load_config(CONFIG).train, model, 1)
+    x1, x2 = shard_images_spatial(mesh, img1, img2)
+    gen = torch.Generator(device=x1.device)
+    label = ["forward"]
+
+    def labelled(name, fn, after=None):
+        def run(*a, **k):
+            label[0] = name
+            out = fn(*a, **k)
+            if after:
+                label[0] = after
+            return out
+        return run
+
+    def step():
+        return spatial_module.spatial_value_and_grad(model, loss, mesh, x1, x2,
+                                                     generator=gen)
+
+    stages = {}
+    t_stage = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    gen.manual_seed(SEED)
+    step()
+    torch.cuda.synchronize()
+    stages["warmup"] = time.perf_counter() - t_stage
+    gen.manual_seed(SEED)
+    calls.clear()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    label[0] = "forward"
+    tagged = []
+
+    def tag(t, *a, **k):
+        n = len(calls)
+        res = counted(t, *a, **k)
+        tagged.append((label[0],) + calls[n])
+        return res
+
+    t0 = time.perf_counter()
+    with mock.patch.object(torch.distributed, "all_reduce", tag), \
+            mock.patch.object(spatial_module, "spatial_uflow_loss",
+                              labelled("loss", spatial_module.spatial_uflow_loss,
+                                       "backward")), \
+            mock.patch.object(spatial_module, "average_grads",
+                              labelled("gradients",
+                                       spatial_module.average_grads)):
+        out = step()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k.name: k.launches for k in KERNELS}
+    params = list(model.parameters())
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    # The same step with the plain cost volume: the bands' shapes, and so
+    # cuDNN's picks, as the checked step's.
+    t_stage = time.perf_counter()
+    gen.manual_seed(SEED)
+    with mock.patch.object(spatial_module, "compute_cost_volume",
+                           compute_cost_volume_reference):
+        step()
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    plain_launches = {k.name: k.launches for k in KERNELS}
+    grads_plain = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                   if p.grad is not None}
+    stages["plain"] = time.perf_counter() - t_stage
+    t_stage = time.perf_counter()
+    # The float64 step on the bands: what they compute, float32's rounding
+    # apart (phase_spatial_train holds it to the one-process float64 step).
+    # cuDNN off: its float64 algorithms at the band shapes may ask for
+    # workspaces that the card's 8 ranks together do not have.
+    model64 = copy.deepcopy(model0).double()
+    gen.manual_seed(SEED)
+    torch.cuda.empty_cache()
+    with mock.patch.object(spatial_module, "compute_cost_volume",
+                           compute_cost_volume_reference), \
+            torch.backends.cudnn.flags(enabled=False):
+        out64 = spatial_module.spatial_value_and_grad(
+            model64, loss, mesh, x1.double(), x2.double(), generator=gen)
+    torch.cuda.synchronize()
+    grads64 = {n: p.grad.detach().cpu() for n, p in model64.named_parameters()
+               if p.grad is not None}
+    total64 = float(out64["total"])
+    del model64, out64
+    torch.cuda.empty_cache()
+    stages["float64"] = time.perf_counter() - t_stage
+    t_stage = time.perf_counter()
+    for n, p in model.named_parameters():
+        p.grad = grads.get(n)
+    grads = {n: g.cpu() for n, g in grads.items()}
+    allreduces = {}
+    for name, nbytes, sec in tagged:
+        row = allreduces.setdefault(name, {"count": 0, "mb": 0.0, "ms": 0.0})
+        row["count"] += 1
+        row["mb"] += nbytes / 2 ** 20
+        row["ms"] += 1e3 * sec
+    result = {
+        "values": {k: float(out[k]) for k in ("total", "l_ph", "l_sm",
+                                              "flow_mean")},
+        "wall_ms": wall_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "plain_launches": plain_launches,
+        "allreduces": allreduces,
+        "mask1_rows": out["mask1"].shape[1],
+        "grad_digest": digest(grads[n] for n in sorted(grads)),
+        "grads": grads if mesh.rank == 0 else None,
+        "grads_plain": grads_plain if mesh.rank == 0 else None,
+        "total64": total64,
+        "grads64": grads64 if mesh.rank == 0 else None,
+        "adam": []}
+    for i in range(SPATIAL_ADAM_STEPS):
+        if i:
+            out = step()
+        opt.step()
+        result["adam"].append({"loss": float(out["total"]),
+                               "params": digest(params)})
+    stages["adam"] = time.perf_counter() - t_stage
+    result["stage_seconds"] = {k: round(v, 2) for k, v in stages.items()}
+    return result
 
 
 def phase_spatial(dev, smi):
@@ -6120,9 +6344,9 @@ def phase_spatial(dev, smi):
         outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(SPATIAL_RANKS)]
         t0 = time.perf_counter()
         run_ranks([[sys.executable, "-c",
-                    f"import chip_smoke as c; c.spatial_worker({r}, "
+                    f"import chip_smoke as c; c.fail_fast(c.spatial_worker, {r}, "
                     f"{SPATIAL_RANKS}, {port}, {outs[r]!r}, {str(dev)!r})"]
-                   for r in range(SPATIAL_RANKS)], 300)
+                   for r in range(SPATIAL_RANKS)], SPATIAL_DEADLINE)
         ranks_s = time.perf_counter() - t0
         loaded = [torch.load(o, weights_only=False) for o in outs]
         got = [g["cells"] for g in loaded]
@@ -6188,7 +6412,330 @@ def phase_spatial(dev, smi):
           "rank_seconds": [g["seconds"] for g in loaded]})
     if failures:
         raise AssertionError("spatial: " + "; ".join(failures))
-    return {"launches": launches, "rows": rows, "max_err": max_err}
+    return {"launches": launches, "rows": rows, "max_err": max_err,
+            "train": [g["train"] for g in loaded],
+            "train_seconds": max(sum(v for k, v in g["seconds"].items()
+                                     if k.startswith("train_"))
+                                 for g in loaded)}
+
+
+def spatial_one_process_step(model, loss, img1, img2, dev, plain=False):
+    """The one-process step that phase spatial_train holds a cell to, cuDNN
+    deterministic: the model in training mode on the pair, level dropout
+    from a generator seeded with ``SEED``, ``UFlowLoss`` and its backward
+    (``plain``: the plain cost volume). Returns the loss and the
+    gradients."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model.zero_grad(set_to_none=True)
+    torch.backends.cudnn.deterministic = True
+    with (mock.patch.object(uflow_module, "compute_cost_volume",
+                            compute_cost_volume_reference)
+          if plain else contextlib.nullcontext()):
+        res = model(img1, img2, with_bk=True, train=True, generator=gen)
+        out = loss(res, img1, img2)
+        out["total"].backward()
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(out["total"].detach()), grads
+
+
+def phase_spatial_train(dev, smi, spatial):
+    """The H-split training objective (``parallel/spatial.py:
+    spatial_value_and_grad``) at full width, 384x640, float32, TF32 off:
+    ``CONFIG``'s model (level dropout 0.1) and ``UFlowLoss`` with
+    ``smooth_order: 1``, the cells of ``SPATIAL_TRAIN_CELLS`` run by phase
+    spatial's gloo ranks (``spatial_train_cell``). Per cell: every rank's
+    loss equal bit for bit and within ``SPATIAL_LOSS_RTOL`` of the
+    one-process float32 step's; the gradients, as a whole, as close to the
+    float64 model with the plain cost volume as the one-process float32
+    gradient, and each parameter's as close as the ranks' own step with
+    the plain cost volume (``step_check``'s rule, 2x + 1e-5, relative L2;
+    the bands' shapes take other cuDNN algorithms than the whole image's,
+    whose float32 error differs by parameter: the rule against the
+    one-process gradient is printed per parameter); the same step in
+    float64 on the bands with the plain cost volume within
+    ``SPATIAL_F64_RTOL`` of the one-process float64 step, loss and each
+    parameter's gradient (what decides that the float32 gaps are rounding,
+    not the bands' arithmetic); the ranks' gradients
+    equal bit for bit; 8 + 8 cost-volume launches per rank per step, none
+    in the plain step; ``SPATIAL_ADAM_STEPS`` Adam steps with finite losses and the
+    parameters equal bit for bit on every rank after each. The backward
+    kernel against its plain version at every rank's halo-extended band
+    and timed at the largest band of each level. Prints each cell's wall
+    ms, peak memory and all-reduces (count, MB, host ms) by stage beside the
+    one-process step's wall ms and peak memory."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bands = {name: spatial_bands(s, b // d)
+             for name, (d, s, b) in SPATIAL_TRAIN_CELLS.items()}
+    checks = sorted({shape for levels in bands.values() for level in levels
+                     for shape in level})
+    grad_err, inputs = check_grad([(shape, MD, 0) for shape in checks], gen, dev)
+    rows = {name: time_grad([max(level, key=lambda t: t[2]) for level in levels],
+                            inputs, smi, f"spatial_train_{name}")
+            for name, levels in bands.items()}
+    del inputs
+
+    torch.cuda.empty_cache()
+    model = get_model(load_config(CONFIG).model, device=dev, seed=SEED)
+    loss = get_loss(spatial_loss_config())
+    img1, img2 = spatial_images(dev)
+    one = {}
+    for b in sorted({b for _, _, b in SPATIAL_TRAIN_CELLS.values()}):
+        x1, x2 = img1[:b], img2[:b]
+        spatial_one_process_step(model, loss, x1, x2, dev)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        total, grads = spatial_one_process_step(model, loss, x1, x2, dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model64 = copy.deepcopy(model).double()
+        total64, grads64 = spatial_one_process_step(
+            model64, loss, x1.double(), x2.double(), dev, plain=True)
+        del model64
+        one[b] = {"total": total, "grads": grads, "grads64": grads64,
+                  "total64": total64,
+                  "wall_ms": wall_ms, "peak_gb": peak_gb}
+        torch.cuda.empty_cache()
+
+    launches, failures = {}, []
+    for name, (d, s, b) in SPATIAL_TRAIN_CELLS.items():
+        mine = [ranks[name] for ranks in spatial["train"][:d * s]]
+        ref = one[b]
+        grads = {n: g.to(dev) for n, g in mine[0]["grads"].items()}
+        plain = {n: g.to(dev) for n, g in mine[0]["grads_plain"].items()}
+        bands64 = {n: g.to(dev) for n, g in mine[0]["grads64"].items()}
+        launches[name] = [m["launches"] for m in mine]
+        over, over_one, f64 = {}, {}, {}
+        if not (sorted(grads) == sorted(plain) == sorted(bands64)
+                == sorted(ref["grads64"])):
+            failures.append(f"{name}: parameters with gradients differ")
+        else:
+            for n in grads:
+                f64[n] = rel_l2(bands64[n], ref["grads64"][n])
+                e, e_plain, e_one = (rel_l2(g, ref["grads64"][n]) for g in
+                                     (grads[n], plain[n], ref["grads"][n]))
+                if not e <= 2 * e_plain + 1e-5:
+                    over[n] = (e, e_plain)
+                if not e <= 2 * e_one + 1e-5:
+                    over_one[n] = (e, e_one)
+        cat = lambda g: torch.cat([g[n].flatten().double()  # noqa: E731
+                                   for n in sorted(g)])
+        err, err_one = (rel_l2(cat(g), cat(ref["grads64"]))
+                        for g in (grads, ref["grads"]))
+        losses = [m["values"]["total"] for m in mine]
+        loss_err = abs(losses[0] - ref["total"]) / abs(ref["total"])
+        adam = [[m["adam"][i] for m in mine] for i in range(SPATIAL_ADAM_STEPS)]
+        f64_worst = max(f64, key=f64.get) if f64 else None
+        loss64_err = (abs(mine[0]["total64"] - ref["total64"])
+                      / abs(ref["total64"]))
+        row = {"phase": "spatial_train", "cell": name, "shape": [b, H, W],
+               "mesh": [d, s], "loss": losses[0], "loss_one_process": ref["total"],
+               "loss_rel_err": loss_err, "loss_rtol": SPATIAL_LOSS_RTOL,
+               "f64_loss_rel_err": loss64_err,
+               "f64_grad_rel_l2_worst": f64.get(f64_worst),
+               "f64_grad_worst_param": f64_worst,
+               "f64_grad_rel_l2_whole": (rel_l2(cat(bands64), cat(ref["grads64"]))
+                                         if f64 else None),
+               "f64_rtol": SPATIAL_F64_RTOL,
+               "losses_equal": len(set(losses)) == 1,
+               "grads_equal": len({m["grad_digest"] for m in mine}) == 1,
+               "grad_rel_l2_vs_one_process": rel_l2(cat(grads), cat(ref["grads"])),
+               "grad_rel_l2_vs_f64": err,
+               "one_process_grad_rel_l2_vs_f64": err_one,
+               "plain_grad_rel_l2_vs_f64": rel_l2(cat(plain), cat(ref["grads64"])),
+               "params_over_tolerance": over,
+               "params_over_one_process_rule": over_one,
+               "launches_per_rank": launches[name],
+               "plain_launches_per_rank": [m["plain_launches"] for m in mine],
+               "adam_losses": [a[0]["loss"] for a in adam],
+               "adam_params_equal": [len({m["params"] for m in a}) == 1
+                                     for a in adam],
+               "wall_ms_per_rank": [m["wall_ms"] for m in mine],
+               "one_process_wall_ms": ref["wall_ms"],
+               "peak_gb_per_rank": [m["peak_gb"] for m in mine],
+               "one_process_peak_gb": ref["peak_gb"],
+               "stage_seconds_per_rank": [m["stage_seconds"] for m in mine],
+               "allreduces": mine[0]["allreduces"],
+               "allreduce_ms_per_rank": [sum(v["ms"] for v in m["allreduces"].values())
+                                         for m in mine],
+               "card": smi}
+        emit(row)
+        if not (row["losses_equal"] and loss_err <= SPATIAL_LOSS_RTOL):
+            failures.append(f"{name}: losses {losses} against {ref['total']}")
+        if not (loss64_err <= SPATIAL_F64_RTOL
+                and all(e <= SPATIAL_F64_RTOL for e in f64.values())):
+            failures.append(f"{name}: the float64 step on the bands is "
+                            f"{loss64_err} (loss) and {row['f64_grad_rel_l2_worst']} "
+                            f"({f64_worst}) from the one-process float64 step")
+        if not (row["grads_equal"] and err <= 2 * err_one + 1e-5) or over:
+            failures.append(f"{name}: gradients equal {row['grads_equal']}, "
+                            f"{err} from float64 against the one-process "
+                            f"{err_one}, over the tolerance {over}")
+        if any(n != {"cost_volume": 8, "cost_volume_bwd": 8}
+               for n in launches[name]) or row["plain_launches_per_rank"] != \
+                launches[name]:
+            failures.append(f"{name}: launches {launches[name]}, not 8 + 8 "
+                            "per rank, or the plain step launched a kernel")
+        if not (all(row["adam_params_equal"])
+                and all(np.isfinite(a[0]["loss"]) and len({x["loss"] for x in a}) == 1
+                        for a in adam)):
+            failures.append(f"{name}: Adam steps {row['adam_losses']}, params "
+                            f"equal {row['adam_params_equal']}")
+    if failures:
+        raise AssertionError("spatial_train: " + "; ".join(failures))
+    return {"launches": launches, "rows": rows, "max_err": grad_err}
+
+
+# cuDNN's settings under which ``--spatial-train-cudnn`` runs the S = 4 step
+SPATIAL_CUDNN_MODES = ("deterministic", "default", "off")
+SPATIAL_CUDNN_RANKS = 4
+
+
+def set_cudnn_mode(mode: str) -> None:
+    torch.backends.cudnn.enabled = mode != "off"
+    torch.backends.cudnn.deterministic = mode == "deterministic"
+
+
+def spatial_cudnn_step(step, dev) -> tuple:
+    """``step()`` once to warm up, then once with its wall ms and the peak
+    memory above what was allocated before it (GB)."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    return (1e3 * (time.perf_counter() - t0),
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def spatial_cudnn_worker(rank, world, port, out, device="cuda:0") -> None:
+    """One rank of ``spatial_train_cudnn``: the spatial step of ``CONFIG``'s
+    model and ``spatial_loss_config()`` at 384x640 b1 on a (1, ``world``)
+    mesh under each of ``SPATIAL_CUDNN_MODES``, in float32 with the kernels
+    (wall ms and peak memory, after a warm-up) and in float64 with the plain
+    cost volume; the mesh's rank 0 keeps both steps' gradients."""
+    from arflow_tpu_torch.parallel import (
+        initialize_multihost,
+        make_spatial_mesh,
+        shard_images_spatial,
+    )
+    from arflow_tpu_torch.parallel import spatial as spatial_module
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"localhost:{port}", world, rank, backend="gloo",
+                         device=dev)
+    model = get_model(load_config(CONFIG).model, device=dev, seed=SEED)
+    model64 = copy.deepcopy(model).double()
+    loss = get_loss(spatial_loss_config())
+    img1, img2 = spatial_images(dev)
+    mesh = make_spatial_mesh(world, device=dev)
+    x1, x2 = shard_images_spatial(mesh, img1[:1], img2[:1])
+    gen = torch.Generator(device=dev)
+
+    def step(m, a, b):
+        gen.manual_seed(SEED)
+        return spatial_module.spatial_value_and_grad(m, loss, mesh, a, b,
+                                                     generator=gen)
+
+    def grads(m):
+        return ({n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                 if p.grad is not None} if rank == 0 else None)
+
+    res = {}
+    for mode in SPATIAL_CUDNN_MODES:
+        set_cudnn_mode(mode)
+        wall_ms, peak_gb = spatial_cudnn_step(lambda: step(model, x1, x2), dev)
+        g32 = grads(model)
+        with mock.patch.object(spatial_module, "compute_cost_volume",
+                               compute_cost_volume_reference):
+            step(model64, x1.double(), x2.double())
+        res[mode] = {"wall_ms": wall_ms, "peak_gb": peak_gb, "grads": g32,
+                     "grads64": grads(model64)}
+    set_cudnn_mode("default")
+    torch.save(res, out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def spatial_train_cudnn(dev, smi) -> None:
+    """Phase spatial_train's S = 4 b1 step under each of cuDNN's settings
+    (``SPATIAL_CUDNN_MODES``: deterministic, its default, off), beside the
+    one-process step under the same setting: per rank and for one process,
+    the step's wall ms and peak memory above the model's; per module, the
+    worst parameter's float32 gradient error (relative L2) against the
+    one-process float64 step with the plain cost volume, for the bands and
+    for one process; the three parameters the bands miss most; and the
+    float64 step on the bands against the one-process float64 step (worst
+    parameter)."""
+    tmp = tempfile.mkdtemp(prefix="spatial_cudnn_")
+    try:
+        port = free_port()
+        world = SPATIAL_CUDNN_RANKS
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        run_ranks([[sys.executable, "-c",
+                    f"import chip_smoke as c; c.fail_fast(c.spatial_cudnn_worker, {r}, "
+                    f"{world}, {port}, {outs[r]!r}, {str(dev)!r})"]
+                   for r in range(world)], 600)
+        got = [torch.load(o, weights_only=False) for o in outs]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = get_model(load_config(CONFIG).model, device=dev, seed=SEED)
+    model64 = copy.deepcopy(model).double()
+    loss = get_loss(spatial_loss_config())
+    img1, img2 = spatial_images(dev)
+    x1, x2 = img1[:1], img2[:1]
+
+    def step(m, a, b):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        m.zero_grad(set_to_none=True)
+        loss(m(a, b, with_bk=True, train=True, generator=gen), a, b)[
+            "total"].backward()
+
+    def module(n):
+        parts = n.split(".")
+        return ".".join(parts[:2] if parts[0] == "_flow_layers" else parts[:1])
+
+    for mode in SPATIAL_CUDNN_MODES:
+        set_cudnn_mode(mode)
+        wall_ms, peak_gb = spatial_cudnn_step(lambda: step(model, x1, x2), dev)
+        one = {n: p.grad.detach() for n, p in model.named_parameters()
+               if p.grad is not None}
+        with mock.patch.object(uflow_module, "compute_cost_volume",
+                               compute_cost_volume_reference):
+            step(model64, x1.double(), x2.double())
+        ref = {n: p.grad.detach() for n, p in model64.named_parameters()
+               if p.grad is not None}
+        bands = {n: g.to(dev) for n, g in got[0][mode]["grads"].items()}
+        bands64 = {n: g.to(dev) for n, g in got[0][mode]["grads64"].items()}
+        errs = {n: (rel_l2(bands[n], ref[n]), rel_l2(one[n], ref[n]))
+                for n in ref}
+        by_module = {}
+        for n, (e_bands, e_one) in errs.items():
+            worst = by_module.setdefault(module(n), [0.0, 0.0])
+            worst[0], worst[1] = max(worst[0], e_bands), max(worst[1], e_one)
+        f64 = {n: rel_l2(bands64[n], ref[n]) for n in ref}
+        f64_worst = max(f64, key=f64.get)
+        emit({"phase": "spatial_train_cudnn", "mode": mode,
+              "mesh": [1, SPATIAL_CUDNN_RANKS], "shape": [1, H, W],
+              "peak_gb_per_rank": [g[mode]["peak_gb"] for g in got],
+              "wall_ms_per_rank": [g[mode]["wall_ms"] for g in got],
+              "one_process_peak_gb": peak_gb, "one_process_wall_ms": wall_ms,
+              "worst_rel_l2_by_module_bands_one_process": by_module,
+              "params_bands_miss_most": {
+                  n: errs[n] for n in sorted(errs, key=lambda n: -errs[n][0])[:3]},
+              "f64_bands_worst_param": f64_worst,
+              "f64_bands_rel_l2": f64[f64_worst], "card": smi})
+    set_cudnn_mode("default")
 
 
 def forward_batches(dev, smi) -> None:
@@ -6227,6 +6774,12 @@ def main() -> int:
         smi = phase_device()
         phase_build()
         forward_batches(dev, smi)
+        print(smi)
+        return 0
+    if sys.argv[1:2] == ["--spatial-train-cudnn"]:
+        smi = phase_device()
+        phase_build()
+        spatial_train_cudnn(dev, smi)
         print(smi)
         return 0
     if sys.argv[1:2] == ["--overfit-spread"]:
@@ -6306,6 +6859,7 @@ def main() -> int:
     tool_launches = timed("tools", phase_tools, dev, smi)
     timed("natural_grad", phase_natural_grad, dev, smi)
     spatial = timed("spatial", phase_spatial, dev, smi)
+    spatial_train = timed("spatial_train", phase_spatial_train, dev, smi, spatial)
     parallel_launches = {
         # one rank of 2 over gloo: the step check's step and DDP_STEPS steps
         # through UFlowTrainer with 4 rows each (8 + 8 per step); the world-
@@ -6360,7 +6914,7 @@ def main() -> int:
         "launches_elbo": {k: v["cost_volume"] for k, v in elbo_launches.items()},
         # The Taylor warp (phase taylor_warp): ELBO_STEPS steps of setups
         # (b), (d) and (e) with taylor_warp at 256x448 b4, one bf16 step of
-        # (b), and taylor_compare's two runs of 300 steps and their EPEs at
+        # (b), and taylor_compare's two runs of 100 steps and their EPEs at
         # 128x160 b4.
         "launches_taylor": {k: v["cost_volume"] for k, v in taylor_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in elbo_rows[key])
@@ -6416,10 +6970,10 @@ def main() -> int:
                               for k, v in parallel_launches.items()},
         # The training tools (phase tools): train_main of chairs_uflow_mse.json
         # on synth_dataset's pairs (6 steps at 384x512 b16, 6 validation
-        # pairs), sanity_train's 300 steps and bf16_compare's 2 x 300 at
+        # pairs), sanity_train's 300 steps and bf16_compare's 2 x 100 at
         # 128x160 b8 (4 per step, 16 held-out forwards), real_frame_train's
-        # 300 steps at 384x640 b1 (8 per step) and --elbo's (4), each with 2
-        # evaluations.
+        # 300 steps at 384x640 b1 (8 per step) and --elbo's 100 (4), each
+        # with 2 evaluations.
         "launches_tools": {k: v["cost_volume"] for k, v in tool_launches.items()},
         # One forward's worth at the tools' level shapes: PWCProbFlow at
         # 128x160 b8, real_frame_train's at 384x640 b1 (one direction) and
@@ -6433,6 +6987,10 @@ def main() -> int:
         "launches_spatial": spatial["launches"],
         **{f"{what}_{key}": sum(r[what] for r in spatial["rows"][key])
            for key in spatial["rows"] for what in ("ms", "plain_ms", "bound_ms")},
+        # The spatial training objective (phase spatial_train): per cell,
+        # each rank's launches in its checked step (4 per direction).
+        "launches_spatial_train": {k: [n["cost_volume"] for n in v]
+                                   for k, v in spatial_train["launches"].items()},
     }, {
         "name": COST_VOLUME_BWD.name,
         "route": "cuda",
@@ -6441,7 +6999,7 @@ def main() -> int:
         # TRAIN_STEPS train steps: 8 per step (4 levels x 2 directions).
         "launches": train_launches["cost_volume_bwd"],
         "max_abs_err": max(grad_err, elbo_grad_err, mse_grad_err, lt_grad_err,
-                           tk_grad_err),
+                           tk_grad_err, spatial_train["max_err"]),
         # One direction's worth at 256x448 b8: the four level shapes summed.
         "ms": sum(r["ms"] for r in grad_rows),
         "plain_ms": sum(r["plain_ms"] for r in grad_rows),
@@ -6476,6 +7034,15 @@ def main() -> int:
         "launches_tools": {k: v["cost_volume_bwd"] for k, v in tool_launches.items()},
         **{f"{what}_{key}": sum(r[what] for r in tk_grad_rows[key])
            for key in tk_grad_rows for what in ("ms", "plain_ms", "bound_ms")},
+        # The spatial training objective (phase spatial_train): per cell,
+        # each rank's launches in its checked step (4 per direction); one
+        # direction's backward at the largest halo-extended band (rows + 8)
+        # of each level.
+        "launches_spatial_train": {k: [n["cost_volume_bwd"] for n in v]
+                                   for k, v in spatial_train["launches"].items()},
+        **{f"{what}_spatial_train_{key}": sum(r[what] for r in rows)
+           for key, rows in spatial_train["rows"].items()
+           for what in ("ms", "plain_ms", "bound_ms")},
     }]})
     # The card's name and power limit as nvidia-smi prints them, on a line
     # of their own before the result line.

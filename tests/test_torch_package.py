@@ -173,10 +173,12 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
     """Training runs (``train=True`` and the ``uflow`` trainer); each
     feature of the JAX trainer that the port does not have yet raises where
     it would take effect and names its ``ROADMAP.md`` item, instead of
-    being skipped: training under a spatial mesh among them (the mesh
-    itself and the spatial forward are ported: ``make_spatial_mesh()`` is
-    the (1, 1) mesh without a group, and raises where the ranks do not
-    factor; ``test_torch_spatial.py`` holds the forward). Resuming from
+    being skipped: bfloat16 training under a spatial mesh among them (the
+    mesh itself, the spatial forward and its float32 training are ported:
+    ``make_spatial_mesh()`` is the (1, 1) mesh without a group, and raises
+    where the ranks do not factor; ``test_torch_spatial.py`` and
+    ``test_torch_spatial_train.py`` hold the forward and the training
+    objective). Resuming from
     the JAX package's orbax checkpoint directory raises and says that the
     JAX package reads one only in ``to-torch`` (which the port's reads:
     ``test_torch_orbax.py``). Saving an orbax checkpoint raises. The switches ported since (``remat``,
@@ -232,8 +234,9 @@ def test_training_forward_raises_and_names_the_roadmap(case, tmp_path):
             with pytest.raises(ValueError, match="do not factor"):
                 make_spatial_mesh(n_spatial=3)
             img = torch.rand(1, 64, 64, 3)
-            spatial_forward(get_model(full.model, device="cpu"), mesh, img,
-                            img, train=True)
+            model16 = get_model(Config(dict(CFG, dtype="bfloat16")),
+                                device="cpu")
+            spatial_forward(model16, mesh, img, img, train=True)
         model = get_model(full.model, device="cpu")
         trainer = get_trainer(trainer_name)(
             [_batch()], valid, model, get_loss(full.loss),

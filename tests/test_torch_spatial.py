@@ -183,12 +183,14 @@ def test_one_rank_mesh_equals_the_one_process_forward(jax_params):
             assert float((f - want).abs().max()) < 1e-12
 
 
-@pytest.mark.parametrize("setup", ["train", "bfloat16", "int8", "int8_env",
-                                   "uflow_prob"])
+@pytest.mark.parametrize("setup", ["train_bfloat16", "bfloat16", "int8",
+                                   "int8_env", "uflow_prob"])
 def test_spatial_forward_refuses_what_is_not_ported(setup, monkeypatch):
-    cfg, train = dict(CFG), setup == "train"
+    cfg, train = dict(CFG), setup == "train_bfloat16"
     if setup in ("bfloat16", "int8"):
         cfg["dtype"] = setup
+    elif setup == "train_bfloat16":
+        cfg["dtype"] = "bfloat16"
     elif setup == "int8_env":
         monkeypatch.setenv("ARFLOW_INT8_PYRAMID", "1")
     elif setup == "uflow_prob":

@@ -7,6 +7,12 @@ loss (``jax.grad`` against autograd), at two level-dropout rates.
   cost volume's backward (its plain version here) included.
 - p = 1: every draw drops on both sides, whatever the random bits, so no
   parameter reaches a flow.
+
+The spatial objective (``parallel.spatial_value_and_grad``) on gloo ranks
+of ``torch_ddp_util.Pool``, meshes (1, 2) and (1, 4), is held to the same
+JAX loss and gradients, the counterpart of the JAX
+``test_spatial_train_grads_match_single_device``: one JAX ``value_and_grad``
+per rate serves both tests, and the ranks run while it compiles.
 """
 
 import pytest
@@ -25,6 +31,7 @@ from arflow_tpu.models import get_model as jax_get_model
 from arflow_tpu_torch import Config
 from arflow_tpu_torch.losses import UFlowLoss
 from arflow_tpu_torch.models import get_model, uflow_state_dict_from_jax
+from torch_ddp_util import Ranks
 from torch_port_util import (  # noqa: F401  (fixtures: jax_params, few_torch_threads)
     CFG,
     frames,
@@ -56,27 +63,67 @@ def _state_dict_f64(tree):
     return {k: sd_hi[k].double() + sd_lo[k].double() for k in sd_hi}
 
 
-@pytest.mark.parametrize("p", [0.0, 1.0])
-def test_train_matches_jax_flows_loss_and_param_grads(jax_params, monkeypatch,
-                                                      p):
+RATES = (0.0, 1.0)
+SPATIAL = {"1x2": 2, "1x4": 4}  # the meshes' space ranks (one data group)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(jax_params, tmp_path_factory):
+    """Per level-dropout rate: the JAX float64 ``value_and_grad`` of the
+    loss (relayouts off) at 1x64x96 (``(total, res, grads)``), and the
+    ranks' ``spatial_train_case`` on each mesh, submitted before the JAX
+    side compiles."""
+    root = tmp_path_factory.mktemp("spatial_train_grads")
+    sd = str(root / "w.pt")
+    torch.save(uflow_state_dict_from_jax(jax_params), sd)
+    img1, img2 = frames(2, seed=6)
+    a, b = jnp.asarray(img1), jnp.asarray(img2)
+    params64 = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64),
+                                      jax_params)
+    loss_j = JaxUFlowLoss(JaxConfig(LOSS_CFG))
+    refs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in GATES_OFF.items():
+            mp.setenv(k, v)
+        for p in RATES:
+            cfg = dict(CFG, level_dropout=p)
+            pending = {key: Ranks(
+                {"model": cfg, "state_dict": sd, "dtype": "float64",
+                 "n_spatial": s, "img1": img1, "img2": img2,
+                 "loss": LOSS_CFG, "seed": 0},
+                root / f"{key}-{p}", world=s, entry="spatial_train_case")
+                for key, s in SPATIAL.items()}
+            model_j = jax_get_model(JaxConfig(cfg))
+
+            def total(params, model_j=model_j):
+                res = model_j.apply({"params": params}, a, b, with_bk=True,
+                                    train=True,
+                                    rngs={"dropout": jax.random.PRNGKey(0)})
+                return loss_j(res, a, b)["total"], res
+
+            (tot_j, res_j), grads_j = jax.jit(
+                jax.value_and_grad(total, has_aux=True))(params64)
+            refs[p] = {"total": tot_j, "res": res_j,
+                       "grads": _state_dict_f64(jax.device_get(grads_j)),
+                       "spatial": {key: r.results()
+                                   for key, r in pending.items()}}
+    return refs
+
+
+def _zero_grads(p):
+    """The parameters whose JAX gradient is zero: at p = 0 only the context
+    deconvs of levels 0 and 1 reach no flow; at p = 1 every one."""
+    return None if p == 1.0 else {f"_context_up_layers.{i}.{w}"
+                                  for i in (0, 1) for w in ("weight", "bias")}
+
+
+@pytest.mark.parametrize("p", RATES)
+def test_train_matches_jax_flows_loss_and_param_grads(jax_params, jax_refs,
+                                                      monkeypatch, p):
     for k, v in GATES_OFF.items():
         monkeypatch.setenv(k, v)
     img1, img2 = frames(2, seed=6)
-    cfg = dict(CFG, level_dropout=p)
-
-    model_j = jax_get_model(JaxConfig(cfg))
-    loss_j = JaxUFlowLoss(JaxConfig(LOSS_CFG))
-    a, b = jnp.asarray(img1), jnp.asarray(img2)
-
-    def total(params):
-        res = model_j.apply({"params": params}, a, b, with_bk=True,
-                            train=True, rngs={"dropout": jax.random.PRNGKey(0)})
-        return loss_j(res, a, b)["total"], res
-
-    params64 = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64),
-                                      jax_params)
-    (tot_j, res_j), grads_j = jax.jit(
-        jax.value_and_grad(total, has_aux=True))(params64)
+    tot_j, res_j, grads_j = (jax_refs[p][k] for k in ("total", "res", "grads"))
 
     model = _port(jax_params, p)
     t1, t2 = torch.from_numpy(img1), torch.from_numpy(img2)
@@ -91,7 +138,6 @@ def test_train_matches_jax_flows_loss_and_param_grads(jax_params, monkeypatch,
     np.testing.assert_allclose(float(tot_t.detach()), float(tot_j), rtol=1e-12)
     # None in torch where the graph never reaches a parameter (level 0's
     # context deconv, and every parameter at p = 1), zeros in JAX.
-    grads_j = _state_dict_f64(jax.device_get(grads_j))
     params = dict(model.named_parameters())
     assert sorted(grads_j) == sorted(params)
     zero = set()
@@ -104,7 +150,34 @@ def test_train_matches_jax_flows_loss_and_param_grads(jax_params, monkeypatch,
                                    msg=name)
         if scale == 0:
             zero.add(name)
-    # At p = 0 only the context deconvs of levels 0 and 1 reach no flow.
-    assert zero == (set(params) if p == 1.0 else
-                    {f"_context_up_layers.{i}.{w}" for i in (0, 1)
-                     for w in ("weight", "bias")})
+    assert zero == (_zero_grads(p) or set(params))
+
+
+@pytest.mark.parametrize("key", list(SPATIAL))
+@pytest.mark.parametrize("p", RATES)
+def test_spatial_train_matches_jax_loss_and_param_grads(jax_refs, p, key):
+    """The spatial objective on the ranks, float64: every rank's loss and
+    averaged gradients equal bit for bit; the loss within 1e-12 of the JAX
+    loss and each parameter's gradient within 1e-10 of its largest JAX
+    entry, the one-process port's bounds (none where the JAX gradient is
+    zero). Measured at p = 0: the loss within 2.2e-16, each gradient within
+    7.0e-12 on both meshes."""
+    runs = jax_refs[p]["spatial"][key]
+    for run in runs:
+        assert run["values"] == runs[0]["values"]
+        assert run["digest"] == runs[0]["digest"]
+    np.testing.assert_allclose(runs[0]["values"]["total"],
+                               float(jax_refs[p]["total"]), rtol=1e-12)
+    grads_j = jax_refs[p]["grads"]
+    grads = runs[0]["grads"]
+    assert sorted(grads) == sorted(grads_j)
+    zero = set()
+    for name, want in grads_j.items():
+        got = grads[name]
+        got = torch.zeros_like(want) if got is None else torch.from_numpy(got)
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-10 * scale,
+                                   msg=name)
+        if scale == 0:
+            zero.add(name)
+    assert zero == (_zero_grads(p) or set(grads_j))

@@ -22,8 +22,9 @@ case is a dict:
 The result of a rank holds the step records (the trainer's metric rows),
 the model's state, the optimizer's state by parameter name, its count and
 the counters. ``spatial_case`` is a case of another kind: the spatial
-forward of a model on the ranks' rows of a pair of images. Worker
-processes import no JAX."""
+forward of a model on the ranks' rows of a pair of images;
+``spatial_loss_case`` and ``spatial_train_case`` its loss and its
+training objective. Worker processes import no JAX."""
 
 import atexit
 import json
@@ -412,6 +413,86 @@ def spatial_case(case: dict, mesh=None) -> dict:
             "flows": {k: [f.numpy() for f in v]
                       for k, v in gather_flows(sp, res).items()}}
     return out
+
+
+def spatial_loss_case(case: dict, mesh=None) -> dict:
+    """``parallel.spatial_uflow_loss`` on this rank's rows of given flows
+    and images, float64, over a spatial mesh of every rank with
+    ``case['n_spatial']`` splitting the height: for each loss config of
+    ``case['losses']``, the loss's values, this rank's rows of ``mask1``
+    and the gradient of ``total`` with respect to its rows of each flow
+    that the loss reads, divided by the mesh's size (each rank holds that
+    many times its share). ``case['flows']``: the global NHWC flows, 6 per
+    direction; ``case['img1']`` / ``case['img2']``: the global images."""
+    from arflow_tpu_torch import Config
+    from arflow_tpu_torch.losses import UFlowLoss
+    from arflow_tpu_torch.parallel import (
+        make_spatial_mesh,
+        shard_images_spatial,
+        spatial_uflow_loss,
+    )
+
+    torch.set_num_threads(1)
+    sp = make_spatial_mesh(case["n_spatial"], device="cpu")
+    img1, img2 = shard_images_spatial(sp, case["img1"], case["img2"])
+    out = []
+    for cfg in case["losses"]:
+        res = {k: [shard_images_spatial(sp, f).requires_grad_() for f in v]
+               for k, v in case["flows"].items()}
+        got = spatial_uflow_loss(UFlowLoss(Config(cfg)), sp, res, img1, img2)
+        got["total"].backward()
+        out.append({
+            "values": {k: float(got[k]) for k in ("total", "l_ph", "l_sm",
+                                                  "flow_mean")},
+            "mask1": got["mask1"].numpy(),
+            "grads": {k: {i: (f.grad / sp.size).numpy()
+                          for i, f in enumerate(v) if f.grad is not None}
+                      for k, v in res.items()}})
+    return {"size": sp.size, "losses": out}
+
+
+def spatial_train_case(case: dict, mesh=None) -> dict:
+    """``parallel.spatial_value_and_grad`` of ``case['model']`` (weights
+    from ``case['state_dict']``, in ``case['dtype']``) and ``UFlowLoss``
+    (``case['loss']``) on this rank's part of ``case['img1']`` /
+    ``case['img2']`` (NHWC arrays) over a spatial mesh of every rank with
+    ``case['n_spatial']`` splitting the height, level dropout drawn from a
+    generator seeded with ``case['seed']``: the loss's values, the bytes of
+    the averaged gradients (every rank's must be equal) and, on rank 0,
+    each parameter's gradient by name (None where it has none)."""
+    import hashlib
+
+    from arflow_tpu_torch import Config
+    from arflow_tpu_torch.losses import UFlowLoss
+    from arflow_tpu_torch.models import get_model
+    from arflow_tpu_torch.parallel import (
+        make_spatial_mesh,
+        shard_images_spatial,
+        spatial_value_and_grad,
+    )
+
+    torch.set_num_threads(1)
+    sp = make_spatial_mesh(case["n_spatial"], device="cpu")
+    model = get_model(Config(case["model"]), device="cpu")
+    model.load_state_dict(torch.load(case["state_dict"], weights_only=True),
+                          strict=True)
+    dtype = getattr(torch, case["dtype"])
+    model = model.to(dtype)
+    img1, img2 = (np.asarray(case[k], case["dtype"]) for k in ("img1", "img2"))
+    got = spatial_value_and_grad(
+        model, UFlowLoss(Config(case["loss"])), sp,
+        *shard_images_spatial(sp, img1, img2),
+        generator=torch.Generator().manual_seed(case["seed"]))
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        if p.grad is not None:
+            digest.update(p.grad.numpy().tobytes())
+    return {"values": {k: float(got[k]) for k in ("total", "l_ph", "l_sm",
+                                                  "flow_mean")},
+            "digest": digest.hexdigest(),
+            "grads": ({n: None if p.grad is None else p.grad.numpy()
+                       for n, p in model.named_parameters()}
+                      if sp.rank == 0 else None)}
 
 
 def serve(rank, world, port, grouped):
